@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's serving path once on an NVIDIA GPU.
+"""Drive the PyTorch port's paths once on an NVIDIA GPU.
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
@@ -8,8 +8,8 @@ Phases, in order (any failure ends the script with a non-zero exit and no
 result line):
 
 1. Header: the card's name and power limit (nvidia-smi), torch and CUDA.
-2. Build: the path's hand-written kernel, compiled from the source in
-   this checkout.
+2. Build: every hand-written kernel library, compiled from the sources in
+   this checkout (one nvcc each, in parallel).
 3. Kernel versus its plain version at the serving shape ([16, 169200]
    waveforms, 1056 frames): ragged lengths (full, short, zero, longer than
    the buffer) of noise plus tones with a silent tail, for every fbank
@@ -24,6 +24,15 @@ result line):
    against the plain fbank path on the same members, then the clips/s of
    full 16-clip dispatches are timed in float32 and bfloat16.
    ``--profile`` adds a torch.profiler table of one float32 dispatch.
+5. The fused MBConv kernels at full width: the first seeded B2 member's
+   eval forward on a 16-clip log-mel batch from the fbank kernel, with
+   each of the 23 blocks' input and output captured. One sweep through
+   ``ops.fused_mbconv_eval_v2`` (all 23 blocks) and ``ops.fused_mbconv_eval``
+   (the 19 stride-1 blocks), float32, is the path whose launches are
+   counted and checked against the module blocks. Then each kernel against
+   its plain version for fast=False and fast=True (v1 at tiles 2048 and
+   256), and per-block times (CUDA events) of each kernel, its plain
+   version and the module block beside the block's bound.
 
 The line before the last is a JSON object with one record per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -50,10 +59,13 @@ from psla_tpu_torch import assets
 from psla_tpu_torch.data.datafiles import make_name_dict
 from psla_tpu_torch.data.wav import decode_wav, resample
 from psla_tpu_torch.frontend import fbank_cuda
+from psla_tpu_torch import ops
+from psla_tpu_torch.frontend.augment import normalize
 from psla_tpu_torch.frontend.fbank import FbankConfig, frontend_matrix, mel_banks
 from psla_tpu_torch.frontend.pipeline import PreprocessConfig
 from psla_tpu_torch.inference import _chunk_logmel, predict_long
 from psla_tpu_torch.models import create_model
+from psla_tpu_torch.ops import fused_mbconv, mbconv_vmem
 from psla_tpu_torch.tools.serve import InferenceEngine, make_server
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): float32
@@ -103,13 +115,20 @@ def header():
           f"python {sys.version.split()[0]} device {torch.cuda.get_device_name(0)}")
 
 
+LIBRARIES = {"fbank": fbank_cuda, "fused_mbconv": fused_mbconv, "mbconv_v2": mbconv_vmem}
+
+
 def build():
+    """Builds every kernel library at once (one nvcc each, in parallel) and
+    prints each kernel's registers, shared memory and spills."""
     t0 = time.perf_counter()
-    fbank_cuda.build()
-    print(f"build: {time.perf_counter() - t0:.2f} s for fbank")
-    for line in fbank_cuda.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  fbank: {line.strip()}")
+    with concurrent.futures.ThreadPoolExecutor(len(LIBRARIES)) as pool:
+        list(pool.map(lambda mod: mod.build(), LIBRARIES.values()))
+    print(f"build: {time.perf_counter() - t0:.2f} s for {', '.join(LIBRARIES)}")
+    for name, mod in LIBRARIES.items():
+        for line in mod.LIBRARY.log.splitlines():
+            if "Compiling entry" in line or "registers" in line or "spill" in line:
+                print(f"  {name}: {line.strip()}")
 
 
 # ---------------------------------------------------------------- phase 3
@@ -466,6 +485,270 @@ def profile_dispatch(engine: InferenceEngine):
     print(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=20))
 
 
+# ---------------------------------------------------------------- phase 5
+
+PEAK_BF16_FLOP_S = 989e12  # H100 SXM tensor cores, dense (data sheet)
+V2_ATOL, V1_ATOL, F32_RTOL = 3e-6, 2e-6, 1e-5  # the JAX package's f32 bars
+FAST_TOL = 5e-2  # fast=True (bfloat16 operands), the JAX package's bar
+# A full-width block that misses the f32 bar above only through its long
+# sums (up to 2112 expanded channels into one output, 33792 pixels into one
+# mean) is held to this bar on max |err| / max |ref| instead.
+F32_REL_BAR = 1e-5
+V1_TILES = (2048, 256)  # the JAX default and a tile shorter than a map row
+SWISH_FLOP = 4  # exp, add, divide, and the negation
+
+
+def block_work(b: int, h: int, w: int, cin: int, ce: int, cse: int, cout: int,
+               k: int, stride: int, has_expand: bool) -> dict:
+    """Operations and bytes one block needs, for v2 and for v1's passes.
+
+    Operations: the expand product, bias and swish; the k*k taps, bias and
+    swish; the squeeze-excite mean, MLP and gate; the project product, bias
+    and residual. ``products`` is the part the tensor cores could take.
+    Bytes: each input read once and each output written once, float32
+    (block input, folded weights, block output; pass 1 writes the [B, Ce]
+    sums, pass 2 reads the [B, Ce] gate)."""
+    ho, wo = -(-h // stride), -(-w // stride)
+    rin, rout = b * h * w, b * ho * wo
+    exp_prod = 2 * rin * cin * ce if has_expand else 0
+    exp_rest = rin * ce * (1 + SWISH_FLOP) if has_expand else 0
+    taps = rout * ce * (2 * k * k + 1 + SWISH_FLOP)
+    mean = rout * ce
+    se = b * (2 * ce * cse + cse * (1 + SWISH_FLOP) + 2 * cse * ce + 4 * ce)
+    proj_prod = 2 * rout * ce * cout
+    proj_rest = rout * ce + rout * cout * (2 if stride == 1 and cin == cout else 1)
+    w_front = (cin * ce + ce if has_expand else 0) + k * k * ce + ce
+    w_se = 2 * ce * cse + cse + ce
+    w_proj = ce * cout + cout
+    x_bytes, y_bytes = 4 * rin * cin, 4 * rout * cout
+    front = exp_prod + exp_rest + taps
+    return {
+        "mbconv_v2": {"flop": front + mean + se + proj_prod + proj_rest,
+                      "products": exp_prod + proj_prod,
+                      "bytes": x_bytes + y_bytes + 4 * (w_front + w_se + w_proj)},
+        "mbconv_pass1": {"flop": front + mean, "products": exp_prod,
+                         "bytes": x_bytes + 4 * (w_front + b * ce)},
+        "mbconv_pass2": {"flop": front + proj_prod + proj_rest, "products": exp_prod + proj_prod,
+                         "bytes": x_bytes + y_bytes + 4 * (w_front + w_proj + b * ce)},
+    }
+
+
+def bound_ms(work: dict, fast: bool = False) -> tuple[float, str]:
+    """Least time: the larger of operations over the peak and bytes over the
+    memory rate. fast=True puts the products at the bf16 tensor-core peak."""
+    if fast:
+        t_ops = (work["products"] / PEAK_BF16_FLOP_S
+                 + (work["flop"] - work["products"]) / PEAK_F32_FLOP_S)
+    else:
+        t_ops = work["flop"] / PEAK_F32_FLOP_S
+    t_bytes = work["bytes"] / PEAK_BYTES_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def hold(what: str, got: torch.Tensor, ref: torch.Tensor, atol: float, rtol: float,
+         rel_bar: float | None = None) -> float:
+    """allclose(got, ref, atol, rtol), or max |err| <= rel_bar * max |ref|."""
+    got, ref = got.float(), ref.float()
+    check(got.shape == ref.shape, f"{what}: shape {tuple(got.shape)} vs {tuple(ref.shape)}")
+    check(bool(torch.isfinite(got).all()), f"{what}: non-finite values")
+    err = float((got - ref).abs().max())
+    if bool(torch.allclose(got, ref, atol=atol, rtol=rtol)):
+        return err
+    scale = float(ref.abs().max())
+    check(rel_bar is not None and err <= rel_bar * scale,
+          f"{what}: max abs err {err:.3e}, max |ref| {scale:.3e} (atol {atol}, rtol {rtol}, "
+          f"relative bar {rel_bar})")
+    print(f"    {what}: misses atol {atol}/rtol {rtol}; held to {err / scale:.2e} of "
+          f"max |ref| {scale:.3e} (bar {rel_bar})")
+    return err
+
+
+def capture_blocks(model) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """Each MBConv block's input and output (NCHW) in one eval forward of a
+    16-clip log-mel batch made by the fbank kernel."""
+    cfg = FbankConfig()
+    rng = np.random.default_rng(21)
+    n = cfg.buffer_length(TARGET)
+    wav = torch.from_numpy(np.stack([tones(rng, n) for _ in range(BATCH)])).to(DEVICE)
+    pre = PreprocessConfig(target_length=TARGET)
+    logmel = normalize(fbank_cuda.fbank_cuda(wav, None, cfg, TARGET), pre.norm_mean,
+                       pre.norm_std)
+    captured = []
+    hooks = [blk.register_forward_hook(lambda m, i, o: captured.append((i[0], o)))
+             for blk in model.effnet._blocks]
+    try:
+        with torch.inference_mode(), module_precision():
+            model(logmel)
+    finally:
+        for hk in hooks:
+            hk.remove()
+    return captured
+
+
+def module_precision():
+    """cuDNN in full float32 for the module forwards, scoped."""
+    return torch.backends.cudnn.flags(enabled=True, allow_tf32=False)
+
+
+def mbconv_phase() -> list[dict]:
+    """Every B2 block at serving width through the three MBConv kernels."""
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are on")
+    model = member(seeded_state_dict(SEEDS[0]), torch.float32).to(DEVICE).eval()
+    blocks = list(model.effnet._blocks)
+    captured = capture_blocks(model)
+    check(len(captured) == len(blocks) == 23, f"{len(captured)} blocks captured")
+    xs = [i.permute(0, 2, 3, 1).contiguous() for i, _ in captured]
+    refs = [o.permute(0, 2, 3, 1) for _, o in captured]
+    geo = [(blk._depthwise_conv.kernel_size[0], blk._depthwise_conv.stride[0])
+           for blk in blocks]
+    folded = [ops.fold_block(blk) for blk in blocks]
+    n_s1 = sum(s == 1 for _, s in geo)
+
+    # the main path: every block once through the public entry points
+    fused_mbconv.LAUNCHES_PASS1 = fused_mbconv.LAUNCHES_PASS2 = mbconv_vmem.LAUNCHES = 0
+    with torch.inference_mode():
+        out_v2 = [ops.fused_mbconv_eval_v2(x, f, k, s, fast=False)
+                  for x, f, (k, s) in zip(xs, folded, geo)]
+        out_v1 = [ops.fused_mbconv_eval(x, f, k, fast=False, tile=V1_TILES[0])
+                  if s == 1 else None for x, f, (k, s) in zip(xs, folded, geo)]
+    torch.cuda.synchronize()
+    launches = {"mbconv_v2": mbconv_vmem.LAUNCHES,
+                "mbconv_pass1": fused_mbconv.LAUNCHES_PASS1,
+                "mbconv_pass2": fused_mbconv.LAUNCHES_PASS2}
+    print(f"launches over one sweep of the {len(blocks)} blocks: {launches}")
+    check(launches == {"mbconv_v2": len(blocks), "mbconv_pass1": n_s1, "mbconv_pass2": n_s1},
+          f"launch counts {launches}, expected {len(blocks)}/{n_s1}/{n_s1}")
+
+    errs = {name: 0.0 for name in launches}
+    times = {key: 0.0 for key in ("v2", "v2_fast", "v2_plain", "p1", "p2", "p1_plain",
+                                  "p2_plain", "module", "module_s1")}
+    bounds = {name: 0.0 for name in launches}
+    by_ops = {name: 0.0 for name in launches}  # seconds at the f32 peak
+    by_bytes = {name: 0.0 for name in launches}  # seconds at the memory rate
+    bound_fast = 0.0
+    total = {"flop": 0, "bytes": 0, "io_bytes": 0}
+    max_sums = 0.0
+    print(f"{'blk':>3} {'k':>1} {'s':>1} {'in -> out (NHWC)':>34} {'Ce':>5} "
+          f"{'v2 err':>9} {'v2 fast':>9} {'vs module':>9} {'v1 err':>9} {'max|ref|':>9} "
+          f"{'v2 ms':>8} {'plain':>8} {'p1 ms':>8} {'p2 ms':>8} {'v1 plain':>8} "
+          f"{'module':>8} {'bound':>8} by")
+    for i, (blk, x, ref, f, (k, s)) in enumerate(zip(blocks, xs, refs, folded, geo)):
+        b, h, w, cin = x.shape
+        ce, cse = f["wr"].shape
+        cout = f["wp"].shape[1]
+        work = block_work(b, h, w, cin, ce, cse, cout, k, s, "w1" in f)
+        with torch.inference_mode():
+            y = out_v2[i]
+            v2_mod = hold(f"block {i} v2 vs module", y, ref, V2_ATOL, F32_RTOL, F32_REL_BAR)
+            plain = mbconv_vmem.fused_mbconv_eval_v2_plain(x, f, k, s, fast=False)
+            v2_err = hold(f"block {i} v2 vs plain", y, plain, V2_ATOL, F32_RTOL, F32_REL_BAR)
+            yf = ops.fused_mbconv_eval_v2(x, f, k, s, fast=True)
+            plain_f = mbconv_vmem.fused_mbconv_eval_v2_plain(x, f, k, s, fast=True)
+            v2_fast = hold(f"block {i} v2 fast vs plain", yf, plain_f, FAST_TOL, FAST_TOL)
+            errs["mbconv_v2"] = max(errs["mbconv_v2"], v2_err)
+            v1_err = float("nan")
+            if s == 1:
+                v1_err = 0.0
+                hold(f"block {i} v1 vs module", out_v1[i], ref, V1_ATOL, F32_RTOL, F32_REL_BAR)
+                hw = float(h * w)
+                for tile in V1_TILES:
+                    for fast in (False, True):
+                        tol = (FAST_TOL, FAST_TOL) if fast else (V1_ATOL, F32_RTOL)
+                        rel = None if fast else F32_REL_BAR
+                        sums = fused_mbconv.mbconv_pass1(x, f, k, fast, tile)
+                        sums_p = fused_mbconv.pass1_plain(x, f, k, fast, tile)
+                        e1 = hold(f"block {i} pass 1 tile {tile} fast={fast} (means)",
+                                  sums / hw, sums_p / hw, *tol, rel)
+                        gate = fused_mbconv.se_gate(sums_p / hw, f).contiguous()
+                        out = fused_mbconv.mbconv_pass2(x, f, gate, k, fast, tile)
+                        out_p = fused_mbconv.pass2_plain(x, f, gate, k, fast, tile)
+                        e2 = hold(f"block {i} pass 2 tile {tile} fast={fast}", out, out_p,
+                                  *tol, rel)
+                        if not fast:
+                            max_sums = max(max_sums, float(sums_p.abs().max()))
+                            errs["mbconv_pass1"] = max(errs["mbconv_pass1"], e1 * hw)
+                            errs["mbconv_pass2"] = max(errs["mbconv_pass2"], e2)
+                            v1_err = max(v1_err, e2)
+
+            tile = V1_TILES[0]
+            row = {
+                "v2_plain": lambda: mbconv_vmem.fused_mbconv_eval_v2_plain(x, f, k, s, False),
+                "v2": lambda: ops.fused_mbconv_eval_v2(x, f, k, s, False),
+                "v2_fast": lambda: ops.fused_mbconv_eval_v2(x, f, k, s, True),
+            }
+            if s == 1:
+                gate = fused_mbconv.se_gate(
+                    fused_mbconv.pass1_plain(x, f, k, False, tile) / float(h * w), f
+                ).contiguous()
+                row.update({
+                    "p1_plain": lambda: fused_mbconv.pass1_plain(x, f, k, False, tile),
+                    "p1": lambda: fused_mbconv.mbconv_pass1(x, f, k, False, tile),
+                    "p2": lambda: fused_mbconv.mbconv_pass2(x, f, gate, k, False, tile),
+                    "p2_plain": lambda: fused_mbconv.pass2_plain(x, f, gate, k, False, tile),
+                })
+            nchw = captured[i][0]
+            with module_precision():
+                row["module"] = lambda: blk(nchw)
+                t = {key: cuda_ms(fn, reps=5, warmup=1) for key, fn in row.items()}
+        for key, v in t.items():
+            times[key] += v
+        if s == 1:
+            times["module_s1"] += t["module"]
+        for name in launches:
+            if name == "mbconv_v2" or s == 1:
+                bounds[name] += bound_ms(work[name])[0]
+                by_ops[name] += work[name]["flop"] / PEAK_F32_FLOP_S
+                by_bytes[name] += work[name]["bytes"] / PEAK_BYTES_S
+        bound_fast += bound_ms(work["mbconv_v2"], fast=True)[0]
+        total["flop"] += work["mbconv_v2"]["flop"]
+        total["bytes"] += work["mbconv_v2"]["bytes"]
+        total["io_bytes"] += 4 * (x.numel() + y.numel())
+        shape = f"{tuple(x.shape)}->{tuple(y.shape)}"
+        print(f"{i:>3} {k:>1} {s:>1} {shape:>34} {ce:>5} {v2_err:>9.2e} {v2_fast:>9.2e} "
+              f"{v2_mod:>9.2e} {v1_err:>9.2e} {float(ref.abs().max()):>9.3e} "
+              f"{t['v2']:>8.4f} {t['v2_plain']:>8.4f} {t.get('p1', float('nan')):>8.4f} "
+              f"{t.get('p2', float('nan')):>8.4f} "
+              f"{t.get('p1_plain', float('nan')) + t.get('p2_plain', float('nan')):>8.4f} "
+              f"{t['module']:>8.4f} {bound_ms(work['mbconv_v2'])[0]:>8.4f} "
+              f"{bound_ms(work['mbconv_v2'])[1]}")
+
+    print(f"all {len(blocks)} blocks: {total['flop'] / 1e9:.2f} GFLOP, "
+          f"{total['bytes'] / 1e6:.1f} MB (block inputs, outputs, weights; float32), of "
+          f"which block inputs and outputs {total['io_bytes'] / 1e6:.1f} MB")
+    print(f"mbconv_v2 over {len(blocks)} blocks: kernel {times['v2']:.4f} ms (fast=True "
+          f"{times['v2_fast']:.4f} ms), plain {times['v2_plain']:.4f} ms, module block "
+          f"forwards (several PyTorch calls each, cuDNN f32) {times['module']:.4f} ms; "
+          f"bound {bounds['mbconv_v2']:.4f} ms at {PEAK_F32_FLOP_S / 1e12:.0f} TFLOP/s f32 "
+          f"({bound_fast:.4f} ms with the products at the {PEAK_BF16_FLOP_S / 1e12:.0f} "
+          f"TFLOP/s bf16 tensor-core peak); kernel at {bounds['mbconv_v2'] / times['v2']:.1%}")
+    print(f"v1 over the {n_s1} stride-1 blocks, tile {V1_TILES[0]}: pass 1 "
+          f"{times['p1']:.4f} ms (plain {times['p1_plain']:.4f}, bound "
+          f"{bounds['mbconv_pass1']:.4f}), pass 2 {times['p2']:.4f} ms (plain "
+          f"{times['p2_plain']:.4f}, bound {bounds['mbconv_pass2']:.4f}); module block "
+          f"forwards of the same blocks {times['module_s1']:.4f} ms")
+    print(f"max abs err vs plain (fast=False): {errs}; pass 1's is of its [B, Ce] sums, "
+          f"which reach {max_sums:.4e}")
+    src = {"mbconv_pass1": ("fused_mbconv.cu", "psla_tpu/ops/fused_mbconv.py:182", "p1"),
+           "mbconv_pass2": ("fused_mbconv.cu", "psla_tpu/ops/fused_mbconv.py:209", "p2"),
+           "mbconv_v2": ("mbconv_v2.cu", "psla_tpu/ops/mbconv_vmem.py:185", "v2")}
+    records = []
+    for name, (source, replaces, key) in src.items():
+        records.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"psla_tpu_torch/csrc/{source}",
+            "replaces": replaces,
+            "launches": launches[name],
+            "max_abs_err": errs[name],
+            "ms": times[key],
+            "plain_ms": times[f"{key}_plain"],
+            "bound_ms": bounds[name],
+            "bound_by": "operations" if by_ops[name] >= by_bytes[name] else "bytes",
+            "library_ms": times["module"] if name == "mbconv_v2" else None,
+        })
+    return records
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -483,9 +766,11 @@ def main(argv=None) -> int:
     build()
     record = kernel_phase()
     record["launches"] = serving_phase(args.profile)
-    check(record["launches"] > 0, "kernel fbank was not launched while serving")
+    records = [record] + mbconv_phase()
+    for r in records:
+        check(r["launches"] > 0, f"kernel {r['name']} was not launched on its path")
     print(f"total {time.perf_counter() - t0:.1f} s")
-    print(json.dumps({"kernels": [record]}))
+    print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -10,10 +10,7 @@ operations that bound counts.
 'gemm' lowering of ``fbank.py`` with the same frame-count rule and the same
 padding to ``target_frames``). A tensor on the CPU takes the plain version; a
 CUDA tensor launches the kernel or raises. The library is compiled by
-``nvcc`` from the source in this package at first use and rebuilt when the
-source changes, into ``$PSLA_TPU_TORCH_BUILD_DIR`` if that is set, else into
-``build/psla_tpu_torch/`` of the checkout the package lies in, else (an
-installed package) into ``psla_tpu_torch`` under the user's cache directory.
+``nvcc`` from the source in this package at first use (``cuda_build``).
 ``LAUNCHES`` counts the kernel's launches.
 """
 
@@ -21,16 +18,11 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
 
 import numpy as np
 import torch
 
+from psla_tpu_torch.cuda_build import CudaLibrary
 from psla_tpu_torch.frontend.fbank import (
     FbankConfig,
     fbank_batched,
@@ -39,70 +31,26 @@ from psla_tpu_torch.frontend.fbank import (
     pad_or_truncate,
 )
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "fbank.cu"
-
-
-def _build_dir() -> Path:
-    if os.environ.get("PSLA_TPU_TORCH_BUILD_DIR"):
-        return Path(os.environ["PSLA_TPU_TORCH_BUILD_DIR"])
-    root = Path(__file__).resolve().parents[2]
-    if (root / "pyproject.toml").exists() and (root / "psla_tpu_torch").is_dir():
-        return root / "build" / "psla_tpu_torch"
-    cache = os.environ.get("XDG_CACHE_HOME") or Path.home() / ".cache"
-    return Path(cache) / "psla_tpu_torch"
-
-
 # Launches of the kernel in this process (the plain version does not count).
 LAUNCHES = 0
 
 # Tile constants shared with csrc/fbank.cu.
 _KC, _NBP, _KB, _MELP = 16, 288, 64, 128
 
-_build_lock = threading.Lock()
-_lib: ctypes.CDLL | None = None
-# nvcc's report (registers, shared memory, spills) from this process's build.
-build_log = ""
+
+def _bind(lib: ctypes.CDLL):
+    lib.psla_fbank_launch.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    )
+    lib.psla_fbank_launch.restype = ctypes.c_int
 
 
-def _nvcc() -> str:
-    for cand in (
-        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
-        shutil.which("nvcc"),
-    ):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+LIBRARY = CudaLibrary("fbank.cu", "psla_fbank", _bind)
 
 
 def build() -> ctypes.CDLL:
     """Compile (if needed) and load the kernel library; returns the handle."""
-    global _lib, build_log
-    with _build_lock:
-        if _lib is not None:
-            return _lib
-        digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-        build_dir = _build_dir()
-        so = build_dir / f"libpsla_fbank_{digest}.so"
-        if not so.exists():
-            build_dir.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-            cmd = [
-                _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-                "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                "-Xptxas", "-v", "-o", str(tmp), str(SOURCE),
-            ]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-            os.replace(tmp, so)  # atomic: a concurrent build never sees half a file
-        lib = ctypes.CDLL(str(so))
-        lib.psla_fbank_launch.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-        )
-        lib.psla_fbank_launch.restype = ctypes.c_int
-        _lib = lib
-        return lib
+    return LIBRARY.load()
 
 
 def _round_up(x: int, m: int) -> int:

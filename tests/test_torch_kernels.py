@@ -1,6 +1,7 @@
-"""The CUDA fbank kernel's wrapper (psla_tpu_torch.frontend.fbank_cuda).
+"""The CUDA kernels' wrappers: the fbank (psla_tpu_torch.frontend.fbank_cuda)
+and the fused MBConv blocks (psla_tpu_torch.ops).
 
-This file imports nothing of JAX, so its card test also runs where only
+This file imports nothing of JAX, so its card tests also run where only
 the port is installed:
 
     python -m pytest --noconftest tests/test_torch_kernels.py -m cuda
@@ -8,7 +9,10 @@ the port is installed:
 On the CPU the wrapper takes its plain version and never builds the
 kernel; the padded constants the kernel reads are checked here by
 emulating the kernel's arithmetic with them. Bar: 2e-4 abs in the log-mel
-domain (f32 summation order), the JAX package's own for its kernel.
+domain (f32 summation order), the JAX package's own for its kernel. The
+MBConv kernels are held to their plain versions at the JAX package's bars
+for the fused blocks: 2e-6 (v1) and 3e-6 (v2) abs with rtol 1e-5 in
+float32, 5e-2 with fast=True.
 """
 
 import dataclasses
@@ -18,8 +22,12 @@ import numpy as np
 import pytest
 import torch
 
+from psla_tpu_torch import cuda_build, ops
 from psla_tpu_torch.frontend import fbank_cuda
 from psla_tpu_torch.frontend.fbank import FbankConfig
+from psla_tpu_torch.ops import fused_mbconv as v1
+from psla_tpu_torch.ops import mbconv_vmem as v2
+from tests.torch_mbconv_fixtures import nhwc_input, random_block
 
 torch.set_num_threads(2)
 
@@ -132,3 +140,126 @@ def test_kernel_matches_plain_version_on_card(precision):
     with pytest.raises(ValueError, match="lengths"):
         fbank_cuda.fbank_cuda(wav_t, len_t.long(), config, TARGET)
     assert fbank_cuda.LAUNCHES == before + 2
+
+
+def test_build_dir_rule(monkeypatch, tmp_path):
+    """$PSLA_TPU_TORCH_BUILD_DIR, else the checkout's build/psla_tpu_torch/;
+    each library is named by a digest of its source."""
+    monkeypatch.delenv("PSLA_TPU_TORCH_BUILD_DIR", raising=False)
+    root = cuda_build.CSRC.parents[1]
+    assert cuda_build.build_dir() == root / "build" / "psla_tpu_torch"
+    monkeypatch.setenv("PSLA_TPU_TORCH_BUILD_DIR", str(tmp_path))
+    assert cuda_build.build_dir() == tmp_path
+    libs = (fbank_cuda.LIBRARY, v1.LIBRARY, v2.LIBRARY)
+    assert {lib.source.name for lib in libs} == {"fbank.cu", "fused_mbconv.cu", "mbconv_v2.cu"}
+    assert all(lib.source.exists() for lib in libs)
+
+
+# ------------------------------------------------------------------ MBConv
+
+# (kernel, stride, cin, cout, expand, h, w): skip, k5, no expand, stride 2
+# with even and odd extents
+MBCONV_SHAPES = [
+    (3, 1, 16, 16, 6, 8, 24), (5, 1, 24, 16, 6, 8, 24), (3, 1, 32, 16, 1, 8, 24),
+    (3, 2, 16, 24, 6, 8, 24), (5, 2, 24, 40, 6, 7, 23), (3, 2, 16, 24, 6, 9, 25),
+]
+
+
+def bars(fast: bool, atol: float) -> dict:
+    return dict(atol=5e-2, rtol=5e-2) if fast else dict(atol=atol, rtol=1e-5)
+
+
+@pytest.mark.parametrize("shape", MBCONV_SHAPES[:3])
+def test_v1_and_v2_plain_versions_agree(shape):
+    """The two plain algorithms (flattened row tiles with masks; padding and
+    strided slices) give the same stride-1 block."""
+    kernel, _, cin, cout, expand, h, w = shape
+    blk = random_block(kernel, 1, cin, cout, expand, seed=cin + h)
+    x = nhwc_input(2, h, w, cin, seed=w)
+    folded = ops.fold_block(blk)
+    a = v1.fused_mbconv_eval_plain(x, folded, kernel, fast=False, tile=40)
+    b = v2.fused_mbconv_eval_v2_plain(x, folded, kernel, 1, fast=False)
+    np.testing.assert_allclose(a.numpy(), b.numpy(), atol=3e-6, rtol=1e-5)
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    assert not torch.backends.cuda.matmul.allow_tf32  # the plain versions' bar
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("shape", MBCONV_SHAPES)
+def test_mbconv_v2_kernel_matches_plain_version_on_card(shape, fast):
+    _card()
+    kernel, stride, cin, cout, expand, h, w = shape
+    blk = random_block(kernel, stride, cin, cout, expand, seed=h * w).cuda()
+    folded = ops.fold_block(blk)
+    x = nhwc_input(3, h, w, cin, seed=cin).cuda()
+    before = v2.LAUNCHES
+    got = ops.fused_mbconv_eval_v2(x, folded, kernel, stride, fast)
+    again = ops.fused_mbconv_eval_v2(x, folded, kernel, stride, fast)
+    torch.cuda.synchronize()
+    assert v2.LAUNCHES == before + 2
+    torch.testing.assert_close(got, again, rtol=0, atol=0)  # no atomics
+    ref = v2.fused_mbconv_eval_v2_plain(x, folded, kernel, stride, fast)
+    assert got.shape == ref.shape and got.dtype == torch.float32
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), **bars(fast, 3e-6))
+    xb = x.bfloat16()
+    got = ops.fused_mbconv_eval_v2(xb, folded, kernel, stride, fast)
+    ref = v2.fused_mbconv_eval_v2_plain(xb, folded, kernel, stride, fast)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().cpu().numpy(), ref.float().cpu().numpy(),
+                               atol=5e-2, rtol=5e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [64, 400])
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("shape", [s for s in MBCONV_SHAPES if s[1] == 1])
+def test_mbconv_v1_kernels_match_plain_versions_on_card(shape, fast, tile):
+    _card()
+    kernel, _, cin, cout, expand, h, w = shape
+    blk = random_block(kernel, 1, cin, cout, expand, seed=h + w).cuda()
+    folded = ops.fold_block(blk)
+    x = nhwc_input(3, h, w, cin, seed=cout).cuda()
+    p1, p2 = v1.LAUNCHES_PASS1, v1.LAUNCHES_PASS2
+    sums = v1.mbconv_pass1(x, folded, kernel, fast, tile)
+    torch.cuda.synchronize()
+    ref = v1.pass1_plain(x, folded, kernel, fast, tile)
+    # a sum of h*w activations: the per-element bar times h*w
+    np.testing.assert_allclose(sums.cpu().numpy(), ref.cpu().numpy(),
+                               **bars(fast, 2e-6 * h * w))
+    gate = v1.se_gate(ref / float(h * w), folded).contiguous()
+    got = v1.mbconv_pass2(x, folded, gate, kernel, fast, tile)
+    ref = v1.pass2_plain(x, folded, gate, kernel, fast, tile)
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), **bars(fast, 2e-6))
+    block = ops.fused_mbconv_eval(x, folded, kernel, fast, tile)
+    torch.cuda.synchronize()
+    assert (v1.LAUNCHES_PASS1, v1.LAUNCHES_PASS2) == (p1 + 2, p2 + 2)
+    ref = v1.fused_mbconv_eval_plain(x, folded, kernel, fast, tile)
+    np.testing.assert_allclose(block.cpu().numpy(), ref.cpu().numpy(), **bars(fast, 2e-6))
+
+
+@pytest.mark.cuda
+def test_mbconv_wrappers_refuse_bad_arguments_on_card():
+    _card()
+    blk = random_block(3, 1, 16, 16, 6, seed=1).cuda()
+    folded = ops.fold_block(blk)
+    x = nhwc_input(2, 5, 7, 16, seed=1).cuda()
+    launches = (v1.LAUNCHES_PASS1, v1.LAUNCHES_PASS2, v2.LAUNCHES)
+    with pytest.raises(ValueError, match="float32"):
+        ops.fused_mbconv_eval(x.double(), folded, 3)
+    with pytest.raises(ValueError, match="one of"):
+        ops.fused_mbconv_eval_v2(x.half(), folded, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.fused_mbconv_eval_v2(x.transpose(1, 2), folded, 3)
+    cpu_folded = {k: t.cpu() for k, t in folded.items()}
+    with pytest.raises(ValueError, match="is on cpu"):
+        ops.fused_mbconv_eval_v2(x, cpu_folded, 3)
+    with pytest.raises(ValueError, match="is on cpu"):
+        ops.fused_mbconv_eval(x, cpu_folded, 3)
+    with pytest.raises(ValueError, match="gate"):
+        v1.mbconv_pass2(x, folded, torch.zeros(2, 96), 3)
+    assert (v1.LAUNCHES_PASS1, v1.LAUNCHES_PASS2, v2.LAUNCHES) == launches

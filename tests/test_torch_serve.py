@@ -378,7 +378,7 @@ def test_importing_the_port_loads_no_jax_module():
         "import psla_tpu_torch, psla_tpu_torch.tools.serve, "
         "psla_tpu_torch.inference, psla_tpu_torch.models.convert, "
         "psla_tpu_torch.frontend.fbank_cuda, psla_tpu_torch.assets, "
-        "psla_tpu_torch.data.datafiles\n"
+        "psla_tpu_torch.data.datafiles, psla_tpu_torch.ops, psla_tpu_torch.cuda_build\n"
         f"bad = sorted(m for m in set(sys.modules) - before "
         f"if m.split('.')[0] in {sorted(FORBIDDEN)!r})\n"
         "print(bad)\n"
