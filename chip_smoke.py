@@ -31,8 +31,10 @@ result line):
    (the 19 stride-1 blocks), float32, is the path whose launches are
    counted and checked against the module blocks. Then each kernel against
    its plain version for fast=False and fast=True (v1 at tiles 2048 and
-   256), and per-block times (CUDA events) of each kernel, its plain
-   version and the module block beside the block's bound.
+   256; pass 2 twice, for the same bits), and per-block times (CUDA
+   events) of each kernel, its plain version and the module block beside
+   the block's bound, with pass 2's grid (blocks of threads, slices S,
+   window pixels P).
 
 The line before the last is a JSON object with one record per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -115,7 +117,8 @@ def header():
           f"python {sys.version.split()[0]} device {torch.cuda.get_device_name(0)}")
 
 
-LIBRARIES = {"fbank": fbank_cuda, "fused_mbconv": fused_mbconv, "mbconv_v2": mbconv_vmem}
+LIBRARIES = {"fbank": fbank_cuda.LIBRARY, "fused_mbconv": fused_mbconv.LIBRARY,
+             "mbconv_pass2": fused_mbconv.PASS2_LIBRARY, "mbconv_v2": mbconv_vmem.LIBRARY}
 
 
 def build():
@@ -123,10 +126,10 @@ def build():
     prints each kernel's registers, shared memory and spills."""
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(LIBRARIES)) as pool:
-        list(pool.map(lambda mod: mod.build(), LIBRARIES.values()))
+        list(pool.map(lambda lib: lib.load(), LIBRARIES.values()))
     print(f"build: {time.perf_counter() - t0:.2f} s for {', '.join(LIBRARIES)}")
-    for name, mod in LIBRARIES.items():
-        for line in mod.LIBRARY.log.splitlines():
+    for name, lib in LIBRARIES.items():
+        for line in lib.log.splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
@@ -603,6 +606,7 @@ def mbconv_phase() -> list[dict]:
            for blk in blocks]
     folded = [ops.fold_block(blk) for blk in blocks]
     n_s1 = sum(s == 1 for _, s in geo)
+    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
 
     # the main path: every block once through the public entry points
     fused_mbconv.LAUNCHES_PASS1 = fused_mbconv.LAUNCHES_PASS2 = mbconv_vmem.LAUNCHES = 0
@@ -631,7 +635,7 @@ def mbconv_phase() -> list[dict]:
     print(f"{'blk':>3} {'k':>1} {'s':>1} {'in -> out (NHWC)':>34} {'Ce':>5} "
           f"{'v2 err':>9} {'v2 fast':>9} {'vs module':>9} {'v1 err':>9} {'max|ref|':>9} "
           f"{'v2 ms':>8} {'plain':>8} {'p1 ms':>8} {'p2 ms':>8} {'v1 plain':>8} "
-          f"{'module':>8} {'bound':>8} by")
+          f"{'module':>8} {'bound':>8} {'by':>10} {'p2 CTAs/S/P':>12} {'p2 bound':>8}")
     for i, (blk, x, ref, f, (k, s)) in enumerate(zip(blocks, xs, refs, folded, geo)):
         b, h, w, cin = x.shape
         ce, cse = f["wr"].shape
@@ -661,6 +665,9 @@ def mbconv_phase() -> list[dict]:
                                   sums / hw, sums_p / hw, *tol, rel)
                         gate = fused_mbconv.se_gate(sums_p / hw, f).contiguous()
                         out = fused_mbconv.mbconv_pass2(x, f, gate, k, fast, tile)
+                        again = fused_mbconv.mbconv_pass2(x, f, gate, k, fast, tile)
+                        check(torch.equal(out, again),
+                              f"block {i} pass 2 tile {tile} fast={fast}: two launches differ")
                         out_p = fused_mbconv.pass2_plain(x, f, gate, k, fast, tile)
                         e2 = hold(f"block {i} pass 2 tile {tile} fast={fast}", out, out_p,
                                   *tol, rel)
@@ -704,13 +711,19 @@ def mbconv_phase() -> list[dict]:
         total["bytes"] += work["mbconv_v2"]["bytes"]
         total["io_bytes"] += 4 * (x.numel() + y.numel())
         shape = f"{tuple(x.shape)}->{tuple(y.shape)}"
+        grid = "-"
+        if s == 1:
+            g2 = fused_mbconv.pass2_geometry(b, h, w, cin, ce, cout, k, sm_count)
+            check(g2.ctas >= sm_count, f"block {i}: pass 2 runs {g2.ctas} blocks of threads")
+            grid = f"{g2.ctas}/{g2.slices}/{g2.p}"
         print(f"{i:>3} {k:>1} {s:>1} {shape:>34} {ce:>5} {v2_err:>9.2e} {v2_fast:>9.2e} "
               f"{v2_mod:>9.2e} {v1_err:>9.2e} {float(ref.abs().max()):>9.3e} "
               f"{t['v2']:>8.4f} {t['v2_plain']:>8.4f} {t.get('p1', float('nan')):>8.4f} "
               f"{t.get('p2', float('nan')):>8.4f} "
               f"{t.get('p1_plain', float('nan')) + t.get('p2_plain', float('nan')):>8.4f} "
               f"{t['module']:>8.4f} {bound_ms(work['mbconv_v2'])[0]:>8.4f} "
-              f"{bound_ms(work['mbconv_v2'])[1]}")
+              f"{bound_ms(work['mbconv_v2'])[1]:>10} {grid:>12} "
+              f"{bound_ms(work['mbconv_pass2'])[0] if s == 1 else float('nan'):>8.4f}")
 
     print(f"all {len(blocks)} blocks: {total['flop'] / 1e9:.2f} GFLOP, "
           f"{total['bytes'] / 1e6:.1f} MB (block inputs, outputs, weights; float32), of "
@@ -729,7 +742,7 @@ def mbconv_phase() -> list[dict]:
     print(f"max abs err vs plain (fast=False): {errs}; pass 1's is of its [B, Ce] sums, "
           f"which reach {max_sums:.4e}")
     src = {"mbconv_pass1": ("fused_mbconv.cu", "psla_tpu/ops/fused_mbconv.py:182", "p1"),
-           "mbconv_pass2": ("fused_mbconv.cu", "psla_tpu/ops/fused_mbconv.py:209", "p2"),
+           "mbconv_pass2": ("mbconv_pass2.cu", "psla_tpu/ops/fused_mbconv.py:209", "p2"),
            "mbconv_v2": ("mbconv_v2.cu", "psla_tpu/ops/mbconv_vmem.py:185", "v2")}
     records = []
     for name, (source, replaces, key) in src.items():

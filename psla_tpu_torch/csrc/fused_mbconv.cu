@@ -1,56 +1,49 @@
-// Fused eval-mode MBConv block, v1: two passes that recompute.
+// Fused eval-mode MBConv block, v1 pass 1: the squeeze-excite sums.
 //
-// Replaces the TPU kernels psla_tpu/ops/fused_mbconv.py::_pass1_kernel and
-// ::_pass2_kernel (launched by fused_mbconv_eval). One stride-1 EfficientNet
-// block with BatchNorm folded (psla_tpu_torch/ops/fused_mbconv.py holds the
-// wrappers and the plain versions, pass1_plain and pass2_plain):
+// Replaces the TPU kernel psla_tpu/ops/fused_mbconv.py::_pass1_kernel
+// (launched by fused_mbconv_eval). One stride-1 EfficientNet block with
+// BatchNorm folded (psla_tpu_torch/ops/fused_mbconv.py holds the wrapper
+// and the plain version, pass1_plain):
 //
 //   e = swish(x @ w1 + b1)              (x itself when there is no expand)
 //   d = swish(depthwise_kxk(e) + bd)    SAME: taps outside the map read 0
-//   pass 1: sums[b, c] = sum over the map of d          (the SE mean's sum)
-//   pass 2: out = (d * gate[b]) @ wp + bp (+ x when Cin == Cout)
+//   sums[b, c] = sum over the map of d  (the SE mean's sum)
 //
-// The squeeze-excite MLP that turns sums into the gate runs between the two
-// launches, in PyTorch. The expanded tensors e and d never reach device
-// memory: each pass computes them again in shared memory.
+// The squeeze-excite MLP that turns sums into the gate runs after this
+// launch, in PyTorch; pass 2 (mbconv_pass2.cu) computes e and d again and
+// projects. e and d never reach device memory.
 //
 // Bound on an H100 SXM: operations. Over B2's 19 stride-1 blocks at the
 // serving shape (16 clips, 64 x 528 after the stem), chip_smoke.py counts
-// 0.40 ms of pass 1's operations and 0.73 ms of pass 2's at the float32
-// CUDA-core rate (67 TFLOP/s), above the bytes of their inputs and outputs
-// at 3.35 TB/s; only the first two blocks (no expand, 16-32 channels) are
-// bound by bytes. This design does each block's expand and depthwise once
-// per pass and again for every halo, and a map of one or two tiles gives
-// only 16-32 blocks of threads, so it sits far above that bound; v2
-// (mbconv_v2.cu) computes them once.
+// 0.40 ms of pass 1's operations at the float32 CUDA-core rate
+// (67 TFLOP/s), above the bytes of its inputs and outputs at 3.35 TB/s;
+// only the first two blocks (no expand, 16-32 channels) are bound by bytes.
+// This design does each block's expand and depthwise again for every
+// halo, and a map of one or two tiles gives only 16-32 blocks of threads,
+// so it sits far above that bound.
 //
 // Design. A block of 256 threads owns one tile of `tile` flattened rows of
 // one clip, as a grid step of the TPU kernel does, and writes the tile's
-// per-channel partial sums (pass 1) or output rows (pass 2); a second small
-// kernel adds pass 1's partial sums in tile order, so a run gives the same
-// bits every time. The TPU kernel reads its tile with a halo of m*W + m
-// rows and masks the taps that wrap around a row edge; here the block walks
-// its rows in 2-D windows of th x tw output pixels (th * tw = 64) with a halo
-// of m rows and m columns, and zero activations outside the map give the
-// same taps those masks select. For each window and each chunk of 32
-// expanded channels it
+// per-channel partial sums; a second small kernel adds them in tile order,
+// so a run gives the same bits every time. The TPU kernel reads its tile
+// with a halo of m*W + m rows and masks the taps that wrap around a row
+// edge; here the block walks its rows in 2-D windows of th x tw output
+// pixels (th * tw = 64) with a halo of m rows and m columns, and zero
+// activations outside the map give the same taps those masks select. For
+// each window and each chunk of 32 expanded channels it
 //   1. stages the window's input pixels, 32 input channels at a time, in
 //      shared memory and forms the expand product on the CUDA cores (each
 //      lane holds one column of w1 in registers), then bias, swish and the
 //      row/column zeroing;
 //   2. takes the k*k taps for its 64 output pixels (lane = channel);
-//   3. pass 1: adds d of the pixels that lie in the tile into per-channel
-//      sums kept in shared memory; pass 2: gates d, and adds its product
-//      with the chunk's 32 rows of wp (staged in shared memory) into the
-//      64 x Cout output accumulators, which stay in shared memory across
-//      the chunks.
+//   3. adds d of the pixels that lie in the tile into per-channel sums
+//      kept in shared memory.
 //
-// fast = 1 follows the TPU kernel's rounding points: the operands of both
-// 1x1 products are rounded to bfloat16 and summed in float32, e is rounded
-// to bfloat16, each tap's product is rounded to bfloat16 before its float32
-// sum; d and the gate stay float32. No library kernel is called.
+// fast = 1 follows the TPU kernel's rounding points: the operands of the
+// expand product are rounded to bfloat16 and summed in float32, e is
+// rounded to bfloat16, each tap's product is rounded to bfloat16 before its
+// float32 sum; d stays float32. No library kernel is called.
 
-#include <algorithm>
 #include <cstdint>
 
 #include <cuda_bf16.h>
@@ -70,12 +63,8 @@ struct Params {
   const float* b1;     // [Ce] or null
   const float* wd;     // [k*k, Ce]
   const float* bd;     // [Ce]
-  const float* gate;   // [B, Ce] (pass 2)
-  const float* wp;     // [Ce, Cout] (pass 2)
-  const float* bp;     // [Cout] (pass 2)
-  float* partial;      // [B, n_tiles, Ce] (pass 1)
-  float* out;          // [B, H, W, Cout] (pass 2)
-  int h, w, cin, ce, cout, tile, n_tiles, has_expand, th, tw;
+  float* partial;      // [B, n_tiles, Ce]
+  int h, w, cin, ce, tile, n_tiles, has_expand, th, tw;
 };
 
 __device__ __forceinline__ float bf16r(float v) {
@@ -84,37 +73,31 @@ __device__ __forceinline__ float bf16r(float v) {
 
 __device__ __forceinline__ float swish(float v) { return v / (1.f + expf(-v)); }
 
-template <int K, bool kFast, bool kPass2>
+template <int K, bool kFast>
 __global__ void __launch_bounds__(kThreads)
-mbconv_pass_kernel(const Params p) {
+pass1_kernel(const Params p) {
   constexpr int m = K / 2;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int b = blockIdx.y, t = blockIdx.x;
-  const int h = p.h, w = p.w, cin = p.cin, ce = p.ce, cout = p.cout;
+  const int h = p.h, w = p.w, cin = p.cin, ce = p.ce;
   const int th = p.th, tw = p.tw;
   const int wh = th + 2 * m, ww = tw + 2 * m, nwin = wh * ww;
   const int hw = h * w;
 
-  // Shared memory: the staged input (pass 2 reuses it for the wp chunk),
-  // the window's e chunk, then per pass the gated d and the output
-  // accumulators, or the channel sums and the cross-warp reduction.
+  // Shared memory: the staged input, the window's e chunk, the channel
+  // sums and the cross-warp reduction.
   float* xs = smem;                                   // [nwin, kKC]
-  const int xs_len = kPass2 ? max(nwin * kKC, kCC * cout) : nwin * kKC;
-  float* es = xs + xs_len;                            // [nwin, kCC]
-  float* gs = es + nwin * kCC;                        // [kP, kCC]   pass 2
-  float* ps = gs + kP * kCC;                          // [kP, Cout]  pass 2
-  float* sums = es + nwin * kCC;                      // [Ce]        pass 1
-  float* red = sums + ce;                             // [kWarps, 32] pass 1
+  float* es = xs + nwin * kKC;                        // [nwin, kCC]
+  float* sums = es + nwin * kCC;                      // [Ce]
+  float* red = sums + ce;                             // [kWarps, 32]
 
   const float* xb = p.x + static_cast<size_t>(b) * hw * cin;
   const int g_lo = t * p.tile;
   const int g_hi = min(g_lo + p.tile, hw);
-  if (!kPass2) {
-    for (int c = tid; c < ce; c += kThreads) sums[c] = 0.f;
-  }
+  for (int c = tid; c < ce; c += kThreads) sums[c] = 0.f;
 
   for (int r0 = g_lo / w; r0 <= (g_hi - 1) / w; r0 += th) {
     for (int q0 = 0; q0 < w; q0 += tw) {
@@ -187,7 +170,6 @@ mbconv_pass_kernel(const Params p) {
           wdr[j] = kFast ? bf16r(v) : v;
         }
         const float bdc = c_ok ? p.bd[c] : 0.f;
-        const float gc = (kPass2 && c_ok) ? p.gate[static_cast<size_t>(b) * ce + c] : 0.f;
         float psum = 0.f;
         for (int q = warp; q < kP; q += kWarps) {
           const int oy = q / tw, ox = q % tw;
@@ -205,63 +187,26 @@ mbconv_pass_kernel(const Params p) {
           const float d = swish(acc + bdc);
           const int r = r0 + oy, col = q0 + ox, g = r * w + col;
           const bool in = r < h && col < w && g >= g_lo && g < g_hi && c_ok;
-          if (kPass2) {
-            const float gd = d * gc;
-            gs[q * kCC + lane] = in ? (kFast ? bf16r(gd) : gd) : 0.f;
-          } else if (in) {
-            psum += d;
-          }
+          if (in) psum += d;
         }
 
-        if (!kPass2) {
-          red[warp * 32 + lane] = psum;
-          __syncthreads();
-          if (warp == 0 && c_ok) {
-            float s = 0.f;
-#pragma unroll
-            for (int i = 0; i < kWarps; ++i) s += red[i * 32 + lane];
-            sums[c] += s;
-          }
-          continue;  // the next chunk's first barrier orders red and sums
-        }
-
-        // 3. pass 2: ps += gated d (this chunk) @ wp[c0 : c0 + 32, :].
-        const int nk = min(kCC, ce - c0);
-        __syncthreads();  // gs written; xs free for the wp chunk
-        for (int i = tid; i < kCC * cout; i += kThreads) {
-          const int kk = i / cout;
-          const float v = kk < nk ? p.wp[static_cast<size_t>(c0) * cout + i] : 0.f;
-          xs[i] = kFast ? bf16r(v) : v;
-        }
+        red[warp * 32 + lane] = psum;
         __syncthreads();
-        for (int i = tid; i < kP * cout; i += kThreads) {
-          const int q = i / cout, n = i % cout;
-          float acc = c0 == 0 ? 0.f : ps[i];
-          const float* gr = gs + q * kCC;
-          for (int kk = 0; kk < nk; ++kk) acc = fmaf(gr[kk], xs[kk * cout + n], acc);
-          ps[i] = acc;
+        if (warp == 0 && c_ok) {
+          float s = 0.f;
+#pragma unroll
+          for (int i = 0; i < kWarps; ++i) s += red[i * 32 + lane];
+          sums[c] += s;
         }
+        // the next chunk's first barrier orders red and sums
       }
-
-      if (kPass2) {
-        for (int i = tid; i < kP * cout; i += kThreads) {
-          const int q = i / cout, n = i % cout;
-          const int r = r0 + q / tw, col = q0 + q % tw, g = r * w + col;
-          if (r >= h || col >= w || g < g_lo || g >= g_hi) continue;
-          float v = ps[i] + p.bp[n];
-          if (cin == cout) v += xb[static_cast<size_t>(g) * cin + n];
-          p.out[(static_cast<size_t>(b) * hw + g) * cout + n] = v;
-        }
-      }
-      __syncthreads();  // ps and the window's buffers are free
+      __syncthreads();  // the window's buffers are free
     }
   }
 
-  if (!kPass2) {
-    __syncthreads();
-    float* dst = p.partial + (static_cast<size_t>(b) * p.n_tiles + t) * ce;
-    for (int c = tid; c < ce; c += kThreads) dst[c] = sums[c];
-  }
+  __syncthreads();
+  float* dst = p.partial + (static_cast<size_t>(b) * p.n_tiles + t) * ce;
+  for (int c = tid; c < ce; c += kThreads) dst[c] = sums[c];
 }
 
 // sums[b, c] = sum over t, in tile order, of partial[b, t, c].
@@ -284,24 +229,19 @@ void window(int tile, int w, int* th, int* tw) {
   *tw = kP / *th;
 }
 
-size_t smem_bytes(const Params& p, int k, bool pass2) {
+size_t smem_bytes(const Params& p, int k) {
   const int m = k / 2;
   const int nwin = (p.th + 2 * m) * (p.tw + 2 * m);
-  size_t floats = static_cast<size_t>(nwin) * kCC;  // es
-  if (pass2)
-    floats += std::max(nwin * kKC, kCC * p.cout) + kP * kCC + kP * p.cout;
-  else
-    floats += nwin * kKC + p.ce + kWarps * 32;
+  const size_t floats = static_cast<size_t>(nwin) * (kCC + kKC) + p.ce + kWarps * 32;
   return floats * sizeof(float);
 }
 
-template <bool kPass2>
 int launch(Params p, int batch, int k, int fast, cudaStream_t stream) {
   if ((k != 3 && k != 5) || batch <= 0 || batch > 65535 || p.h <= 0 || p.w <= 0 ||
-      p.tile <= 0 || p.ce <= 0 || (kPass2 && p.cout <= 0))
+      p.tile <= 0 || p.ce <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   window(p.tile, p.w, &p.th, &p.tw);
-  const size_t smem = smem_bytes(p, k, kPass2);
+  const size_t smem = smem_bytes(p, k);
   int dev = 0, max_smem = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -310,33 +250,14 @@ int launch(Params p, int batch, int k, int fast, cudaStream_t stream) {
   if (smem > static_cast<size_t>(max_smem)) return static_cast<int>(cudaErrorInvalidValue);
   void (*kern)(const Params);
   if (k == 3)
-    kern = fast ? mbconv_pass_kernel<3, true, kPass2> : mbconv_pass_kernel<3, false, kPass2>;
+    kern = fast ? pass1_kernel<3, true> : pass1_kernel<3, false>;
   else
-    kern = fast ? mbconv_pass_kernel<5, true, kPass2> : mbconv_pass_kernel<5, false, kPass2>;
+    kern = fast ? pass1_kernel<5, true> : pass1_kernel<5, false>;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   kern<<<dim3(p.n_tiles, batch), kThreads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
-}
-
-Params make_params(const void* x, const void* w1, const void* b1, const void* wd,
-                   const void* bd, int h, int w, int cin, int ce, int tile,
-                   int has_expand) {
-  Params p{};
-  p.x = static_cast<const float*>(x);
-  p.w1 = static_cast<const float*>(w1);
-  p.b1 = static_cast<const float*>(b1);
-  p.wd = static_cast<const float*>(wd);
-  p.bd = static_cast<const float*>(bd);
-  p.h = h;
-  p.w = w;
-  p.cin = cin;
-  p.ce = ce;
-  p.tile = tile;
-  p.n_tiles = (h * w + tile - 1) / tile;
-  p.has_expand = has_expand;
-  return p;
 }
 
 }  // namespace
@@ -350,29 +271,26 @@ int psla_mbconv_pass1_launch(const void* x, const void* w1, const void* b1,
                              const void* wd, const void* bd, void* partial, void* sums,
                              int batch, int h, int w, int cin, int ce, int k, int tile,
                              int fast, int has_expand, void* stream) {
-  Params p = make_params(x, w1, b1, wd, bd, h, w, cin, ce, tile, has_expand);
+  Params p{};
+  p.x = static_cast<const float*>(x);
+  p.w1 = static_cast<const float*>(w1);
+  p.b1 = static_cast<const float*>(b1);
+  p.wd = static_cast<const float*>(wd);
+  p.bd = static_cast<const float*>(bd);
   p.partial = static_cast<float*>(partial);
+  p.h = h;
+  p.w = w;
+  p.cin = cin;
+  p.ce = ce;
+  p.tile = tile;
+  p.n_tiles = tile > 0 ? (h * w + tile - 1) / tile : 0;
+  p.has_expand = has_expand;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int err = launch<false>(p, batch, k, fast, s);
+  const int err = launch(p, batch, k, fast, s);
   if (err != 0) return err;
   tile_sum_kernel<<<dim3((ce + 255) / 256, batch), 256, 0, s>>>(
       static_cast<const float*>(partial), static_cast<float*>(sums), p.n_tiles, ce);
   return static_cast<int>(cudaGetLastError());
-}
-
-// Pass 2: out [B, H, W, Cout] = (d * gate) @ wp + bp (+ x when Cin == Cout).
-int psla_mbconv_pass2_launch(const void* x, const void* w1, const void* b1,
-                             const void* wd, const void* bd, const void* gate,
-                             const void* wp, const void* bp, void* out, int batch, int h,
-                             int w, int cin, int ce, int cout, int k, int tile, int fast,
-                             int has_expand, void* stream) {
-  Params p = make_params(x, w1, b1, wd, bd, h, w, cin, ce, tile, has_expand);
-  p.gate = static_cast<const float*>(gate);
-  p.wp = static_cast<const float*>(wp);
-  p.bp = static_cast<const float*>(bp);
-  p.out = static_cast<float*>(out);
-  p.cout = cout;
-  return launch<true>(p, batch, k, fast, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

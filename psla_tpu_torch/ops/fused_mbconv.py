@@ -13,17 +13,22 @@ depthwise per tile and keeps only per-channel sums for the squeeze-excite
 mean; the small SE MLP runs between the passes in PyTorch; pass 2 computes
 expand + depthwise again, gates, projects and adds the residual.
 
-Kernels (``csrc/fused_mbconv.cu``, CUDA C++ for sm_90a):
+Kernels (CUDA C++ for sm_90a):
 
-* ``mbconv_pass1`` replaces ``psla_tpu/ops/fused_mbconv.py::_pass1_kernel``;
-* ``mbconv_pass2`` replaces ``psla_tpu/ops/fused_mbconv.py::_pass2_kernel``.
+* ``mbconv_pass1`` (``csrc/fused_mbconv.cu``) replaces
+  ``psla_tpu/ops/fused_mbconv.py::_pass1_kernel``;
+* ``mbconv_pass2`` (``csrc/mbconv_pass2.cu``) replaces
+  ``psla_tpu/ops/fused_mbconv.py::_pass2_kernel``. Its output does not
+  depend on ``tile``, so it takes 2-D windows and expanded-channel slices
+  of its own (``pass2_geometry``).
 
 ``pass1_plain`` and ``pass2_plain`` are their plain versions: the JAX
 algorithm itself (tiles of ``tile`` flattened rows with a halo of
 ``m*W + m`` rows, the row mask and the per-``dw`` column masks, per-tile
 sums added in tile order), so ``tile`` means the same on the CPU and the
-masking is tested there. A CPU tensor takes the plain versions; a CUDA
-tensor launches the kernels or raises. ``LAUNCHES_PASS1`` and
+masking is tested there; ``pass2_plain`` uses ``tile`` as the JAX
+function does, though its result does not depend on it. A CPU tensor
+takes the plain versions; a CUDA tensor launches the kernels or raises. ``LAUNCHES_PASS1`` and
 ``LAUNCHES_PASS2`` count the kernels' launches.
 
 ``fast=True`` rounds the operands of the two 1x1 products to bfloat16 and
@@ -35,6 +40,8 @@ stay float32 (the JAX kernel's rounding points).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -53,19 +60,28 @@ def _bind(lib: ctypes.CDLL):
     lib.psla_mbconv_pass1_launch.argtypes = (
         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     )
-    lib.psla_mbconv_pass2_launch.argtypes = (
-        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
-    )
     lib.psla_mbconv_pass1_launch.restype = ctypes.c_int
+
+
+def _bind_pass2(lib: ctypes.CDLL):
+    lib.psla_mbconv_pass2_launch.argtypes = (
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 17 + [ctypes.c_void_p]
+    )
     lib.psla_mbconv_pass2_launch.restype = ctypes.c_int
 
 
 LIBRARY = CudaLibrary("fused_mbconv.cu", "psla_fused_mbconv", _bind)
+PASS2_LIBRARY = CudaLibrary("mbconv_pass2.cu", "psla_mbconv_pass2", _bind_pass2)
 
 
 def build() -> ctypes.CDLL:
-    """Compile (if needed) and load the kernel library; returns the handle."""
+    """Compile (if needed) and load pass 1's library; returns the handle."""
     return LIBRARY.load()
+
+
+def build_pass2() -> ctypes.CDLL:
+    """Compile (if needed) and load pass 2's library; returns the handle."""
+    return PASS2_LIBRARY.load()
 
 
 # ------------------------------------------------------------------ folding
@@ -292,11 +308,141 @@ def fused_mbconv_eval_plain(x: torch.Tensor, folded: dict, kernel: int,
     return pass2_plain(x, folded, gate, kernel, fast, tile)
 
 
+# ------------------------------------------------------------------ pass-2 geometry
+
+P2_THREADS = 256     # threads a block (8 warps)
+P2_CHUNK = 32        # expanded channels of one chunk
+P2_MAX_P = 64        # output pixels of one window, at most
+P2_TN = (2, 4, 8, 12, 16, 24)  # output channels a thread holds (kernel templates)
+P2_MAX_WASTE = 0.125  # share of computed pixels that may lie outside the map
+SMEM_LIMIT = 232448  # dynamic shared memory a block may opt in to (H100)
+
+
+@dataclasses.dataclass(frozen=True)
+class Pass2Geometry:
+    """Launch geometry of the pass-2 kernel (``csrc/mbconv_pass2.cu``).
+
+    A block owns one ``th`` x ``tw`` window of output pixels of one clip and
+    one slice of ``slice_len`` expanded channels; the grid is ``windows``
+    (over all clips) x ``slices``. In the projection thread ``t < tp * tc``
+    holds pixels ``4 * (t // tc) + i`` (i < 4) and output channels
+    ``t % tc + tc * j`` (j < ``tn``)."""
+
+    th: int
+    tw: int
+    windows: int      # over all clips: b * ceil(h / th) * ceil(w / tw)
+    slices: int       # S: partial products summed by a second kernel when > 1
+    slice_len: int    # expanded channels of a slice (a multiple of P2_CHUNK)
+    p: int            # th * tw
+    tp: int           # pixel groups of four: ceil(p / 4)
+    tc: int           # output-channel groups
+    tn: int           # output channels a thread holds (one of P2_TN)
+    threads: int
+    smem: int         # dynamic shared memory, bytes
+
+    @property
+    def ctas(self) -> int:
+        return self.windows * self.slices
+
+
+def _p2_proj(tp: int, cout: int):
+    """(cost, tc, tn) of the cheapest projection layout for tp pixel groups:
+    time goes with the warps each of the 4 schedulers runs times tn."""
+    best = None
+    for tn in P2_TN:
+        tc = -(-cout // tn)
+        if tp * tc > P2_THREADS:
+            continue
+        warps = -(-(tp * tc) // 32)
+        cost = -(-warps // 4) * tn
+        if best is None or cost < best[0]:
+            best = (cost, tc, tn)
+    return best
+
+
+def _p2_smem(nw: int, cin: int, tp: int, tc: int, tn: int, k: int,
+             has_expand: bool) -> int:
+    """Shared memory of one block, floats -> bytes (mirrors smem_floats()
+    in csrc/mbconv_pass2.cu)."""
+    xs = nw * (_round_up(cin, 8) + 4)          # the halo window of x
+    es = nw * P2_CHUNK                          # e of one chunk
+    gt = P2_CHUNK * (4 * tp + 4)                # gated d, transposed
+    w1 = _round_up(cin, 4) * P2_CHUNK if has_expand else 0  # w1's chunk
+    wp = P2_CHUNK * _round_up(tc * tn, 4)       # wp's rows of the chunk
+    small = (k * k + 3) * P2_CHUNK              # wd, b1, bd, gate of the chunk
+    return 4 * (xs + es + gt + w1 + wp + small)
+
+
+@functools.lru_cache(maxsize=None)
+def pass2_geometry(b: int, h: int, w: int, cin: int, ce: int, cout: int, k: int,
+                   sm_count: int, has_expand: bool | None = None) -> Pass2Geometry:
+    """The pass-2 kernel's window, slices and block shape for one block.
+
+    The window is the one with the least work (halo recompute of the expand
+    in 64-row rounds, the depthwise, the projection) whose computed pixels
+    outside the map stay within ``P2_MAX_WASTE`` and whose shared memory
+    fits; then S is the smallest number of expanded-channel slices that
+    gives at least two blocks of threads an SM, each slice of at least 64
+    channels (or S = 1). Pass 2's output does not depend on the JAX
+    function's ``tile``, so the geometry does not either. ``has_expand``
+    defaults to Ce != Cin (EfficientNet's blocks without expand have
+    Ce == Cin)."""
+    m = k // 2
+    if has_expand is None:
+        has_expand = ce != cin
+    best = None
+    for th in range(1, min(h, P2_MAX_P) + 1):
+        for tw in range(1, min(w, P2_MAX_P // th) + 1):
+            nh, nwin_w = -(-h // th), -(-w // tw)
+            if 1 - h * w / (nh * th * nwin_w * tw) > P2_MAX_WASTE:
+                continue
+            p = th * tw
+            tp = -(-p // 4)
+            proj = _p2_proj(tp, cout)
+            if proj is None:
+                continue
+            nw = (th + 2 * m) * (tw + 2 * m)
+            smem = _p2_smem(nw, cin, tp, proj[1], proj[2], k, has_expand)
+            if smem > SMEM_LIMIT:
+                continue
+            # cycles a chunk of 32 expanded channels takes, roughly: the
+            # expand in rounds of 64 halo rows (16 an input channel), the
+            # projection (32 channels x 4 pixels x tn, per warp a scheduler
+            # runs) and the taps (8 warps, 2 a scheduler)
+            expand = -(-nw // 64) * 16 * _round_up(cin, 4) if has_expand else nw
+            taps = -(-(4 * tp) // 8) * (2 * k * k + 12) * 2
+            cost = nh * nwin_w * (expand + 128 * proj[0] + taps)
+            key = (cost, -p)
+            if best is None or key < best[0]:
+                best = (key, th, tw, nh * nwin_w, tp, proj[1], proj[2], smem)
+    if best is None:
+        raise ValueError(f"pass 2: no window fits Cin {cin}, Cout {cout}, k {k}")
+    _, th, tw, per_clip, tp, tc, tn, smem = best
+    windows = b * per_clip
+    slices, slice_len = 1, _round_up(ce, P2_CHUNK)
+    for s in range(2, ce // 64 + 1):
+        if windows * slices >= 2 * sm_count:
+            break
+        length = _round_up(-(-ce // s), P2_CHUNK)
+        n = -(-ce // length)
+        if ce - (n - 1) * length < 64:
+            continue
+        slices, slice_len = n, length
+    return Pass2Geometry(th=th, tw=tw, windows=windows, slices=slices,
+                         slice_len=slice_len, p=th * tw, tp=tp, tc=tc, tn=tn,
+                         threads=P2_THREADS, smem=smem)
+
+
 # ------------------------------------------------------------------ kernels
 
 
 def _ptr(folded: dict, key: str) -> int | None:
     return folded[key].data_ptr() if key in folded else None
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def mbconv_pass1(x: torch.Tensor, folded: dict, kernel: int, fast: bool = True,
@@ -327,26 +473,38 @@ def mbconv_pass1(x: torch.Tensor, folded: dict, kernel: int, fast: bool = True,
 
 def mbconv_pass2(x: torch.Tensor, folded: dict, gate: torch.Tensor, kernel: int,
                  fast: bool = True, tile: int = 2048) -> torch.Tensor:
-    """Pass 2 (kernel on CUDA, plain version on the CPU): [B, H, W, Cout]."""
+    """Pass 2 (kernel on CUDA, plain version on the CPU): [B, H, W, Cout].
+
+    ``tile`` is the JAX function's row tile: checked, and used by the plain
+    version; the output does not depend on it, and the kernel takes its
+    windows and slices from ``pass2_geometry``."""
     check_args(x, folded, kernel, 1, (torch.float32,), "mbconv_pass2")
     ce = folded["wd"].shape[1]
     if tuple(gate.shape) != (x.shape[0], ce) or gate.dtype != torch.float32 \
             or gate.device != x.device or not gate.is_contiguous():
         raise ValueError(f"mbconv_pass2: gate must be contiguous float32 [B, Ce] "
                          f"on x's device, got {tuple(gate.shape)} {gate.dtype}")
+    if tile <= 0:
+        raise ValueError(f"mbconv_pass2: tile must be positive, got {tile}")
     if x.device.type == "cpu":
         return pass2_plain(x, folded, gate, kernel, fast, tile)
     if x.shape[0] > 65535:
         raise ValueError(f"mbconv_pass2: at most 65535 clips, got {x.shape[0]}")
-    b, h, w, cin, hw, m, hl, tile, n_tiles = _geometry(x, kernel, tile)
+    b, h, w, cin = x.shape
     cout = folded["wp"].shape[1]
+    geo = pass2_geometry(b, h, w, cin, ce, cout, kernel, _sm_count(x.device),
+                         "w1" in folded)
     out = torch.empty((b, h, w, cout), dtype=torch.float32, device=x.device)
-    lib = build()
+    partial = (torch.empty((geo.slices, b * h * w, cout), dtype=torch.float32,
+                           device=x.device) if geo.slices > 1 else None)
+    lib = build_pass2()
     err = lib.psla_mbconv_pass2_launch(
         x.data_ptr(), _ptr(folded, "w1"), _ptr(folded, "b1"), folded["wd"].data_ptr(),
         folded["bd"].data_ptr(), gate.data_ptr(), folded["wp"].data_ptr(),
         folded["bp"].data_ptr(), out.data_ptr(),
-        b, h, w, cin, ce, cout, kernel, tile, int(fast), int("w1" in folded),
+        None if partial is None else partial.data_ptr(),
+        b, h, w, cin, ce, cout, kernel, int(fast), int("w1" in folded),
+        geo.th, geo.tw, geo.slices, geo.slice_len, geo.tc, geo.tn, geo.threads, geo.smem,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:

@@ -150,8 +150,9 @@ def test_build_dir_rule(monkeypatch, tmp_path):
     assert cuda_build.build_dir() == root / "build" / "psla_tpu_torch"
     monkeypatch.setenv("PSLA_TPU_TORCH_BUILD_DIR", str(tmp_path))
     assert cuda_build.build_dir() == tmp_path
-    libs = (fbank_cuda.LIBRARY, v1.LIBRARY, v2.LIBRARY)
-    assert {lib.source.name for lib in libs} == {"fbank.cu", "fused_mbconv.cu", "mbconv_v2.cu"}
+    libs = (fbank_cuda.LIBRARY, v1.LIBRARY, v1.PASS2_LIBRARY, v2.LIBRARY)
+    assert {lib.source.name for lib in libs} == {"fbank.cu", "fused_mbconv.cu",
+                                                 "mbconv_pass2.cu", "mbconv_v2.cu"}
     assert all(lib.source.exists() for lib in libs)
 
 
@@ -214,16 +215,24 @@ def test_mbconv_v2_kernel_matches_plain_version_on_card(shape, fast):
                                atol=5e-2, rtol=5e-2)
 
 
+# (shape, clips): the stride-1 shapes above at 3 clips, and two B2 shapes
+# at 2 clips whose pass 2 splits the expanded channels (S > 1) over windows
+# that do not divide the map's width
+V1_CARD_CASES = [(s, 3) for s in MBCONV_SHAPES if s[1] == 1] + [
+    ((3, 1, 208, 352, 6, 4, 33), 2), ((5, 1, 120, 120, 6, 8, 66), 2),
+]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("tile", [64, 400])
 @pytest.mark.parametrize("fast", [False, True])
-@pytest.mark.parametrize("shape", [s for s in MBCONV_SHAPES if s[1] == 1])
-def test_mbconv_v1_kernels_match_plain_versions_on_card(shape, fast, tile):
+@pytest.mark.parametrize("shape,clips", V1_CARD_CASES)
+def test_mbconv_v1_kernels_match_plain_versions_on_card(shape, clips, fast, tile):
     _card()
     kernel, _, cin, cout, expand, h, w = shape
     blk = random_block(kernel, 1, cin, cout, expand, seed=h + w).cuda()
     folded = ops.fold_block(blk)
-    x = nhwc_input(3, h, w, cin, seed=cout).cuda()
+    x = nhwc_input(clips, h, w, cin, seed=cout).cuda()
     p1, p2 = v1.LAUNCHES_PASS1, v1.LAUNCHES_PASS2
     sums = v1.mbconv_pass1(x, folded, kernel, fast, tile)
     torch.cuda.synchronize()
@@ -233,11 +242,14 @@ def test_mbconv_v1_kernels_match_plain_versions_on_card(shape, fast, tile):
                                **bars(fast, 2e-6 * h * w))
     gate = v1.se_gate(ref / float(h * w), folded).contiguous()
     got = v1.mbconv_pass2(x, folded, gate, kernel, fast, tile)
+    again = v1.mbconv_pass2(x, folded, gate, kernel, fast, tile)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, again, rtol=0, atol=0)  # no atomics
     ref = v1.pass2_plain(x, folded, gate, kernel, fast, tile)
     np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), **bars(fast, 2e-6))
     block = ops.fused_mbconv_eval(x, folded, kernel, fast, tile)
     torch.cuda.synchronize()
-    assert (v1.LAUNCHES_PASS1, v1.LAUNCHES_PASS2) == (p1 + 2, p2 + 2)
+    assert (v1.LAUNCHES_PASS1, v1.LAUNCHES_PASS2) == (p1 + 2, p2 + 3)
     ref = v1.fused_mbconv_eval_plain(x, folded, kernel, fast, tile)
     np.testing.assert_allclose(block.cpu().numpy(), ref.cpu().numpy(), **bars(fast, 2e-6))
 
