@@ -31,10 +31,10 @@ result line):
    (the 19 stride-1 blocks), float32, is the path whose launches are
    counted and checked against the module blocks. Then each kernel against
    its plain version for fast=False and fast=True (v1 at tiles 2048 and
-   256; pass 2 twice, for the same bits), and per-block times (CUDA
+   256; each pass twice, for the same bits), and per-block times (CUDA
    events) of each kernel, its plain version and the module block beside
-   the block's bound, with pass 2's grid (blocks of threads, slices S,
-   window pixels P).
+   the block's bound, with the grids of passes 1 and 2 (blocks of threads,
+   slices S, window pixels P).
 
 The line before the last is a JSON object with one record per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -117,7 +117,7 @@ def header():
           f"python {sys.version.split()[0]} device {torch.cuda.get_device_name(0)}")
 
 
-LIBRARIES = {"fbank": fbank_cuda.LIBRARY, "fused_mbconv": fused_mbconv.LIBRARY,
+LIBRARIES = {"fbank": fbank_cuda.LIBRARY, "mbconv_pass1": fused_mbconv.LIBRARY,
              "mbconv_pass2": fused_mbconv.PASS2_LIBRARY, "mbconv_v2": mbconv_vmem.LIBRARY}
 
 
@@ -635,7 +635,8 @@ def mbconv_phase() -> list[dict]:
     print(f"{'blk':>3} {'k':>1} {'s':>1} {'in -> out (NHWC)':>34} {'Ce':>5} "
           f"{'v2 err':>9} {'v2 fast':>9} {'vs module':>9} {'v1 err':>9} {'max|ref|':>9} "
           f"{'v2 ms':>8} {'plain':>8} {'p1 ms':>8} {'p2 ms':>8} {'v1 plain':>8} "
-          f"{'module':>8} {'bound':>8} {'by':>10} {'p2 CTAs/S/P':>12} {'p2 bound':>8}")
+          f"{'module':>8} {'bound':>8} {'by':>10} {'p1 CTAs/S/P':>12} {'p2 CTAs/S/P':>12} "
+          f"{'p1 bound':>8} {'p2 bound':>8}")
     for i, (blk, x, ref, f, (k, s)) in enumerate(zip(blocks, xs, refs, folded, geo)):
         b, h, w, cin = x.shape
         ce, cse = f["wr"].shape
@@ -660,6 +661,9 @@ def mbconv_phase() -> list[dict]:
                         tol = (FAST_TOL, FAST_TOL) if fast else (V1_ATOL, F32_RTOL)
                         rel = None if fast else F32_REL_BAR
                         sums = fused_mbconv.mbconv_pass1(x, f, k, fast, tile)
+                        again = fused_mbconv.mbconv_pass1(x, f, k, fast, tile)
+                        check(torch.equal(sums, again),
+                              f"block {i} pass 1 tile {tile} fast={fast}: two launches differ")
                         sums_p = fused_mbconv.pass1_plain(x, f, k, fast, tile)
                         e1 = hold(f"block {i} pass 1 tile {tile} fast={fast} (means)",
                                   sums / hw, sums_p / hw, *tol, rel)
@@ -711,18 +715,22 @@ def mbconv_phase() -> list[dict]:
         total["bytes"] += work["mbconv_v2"]["bytes"]
         total["io_bytes"] += 4 * (x.numel() + y.numel())
         shape = f"{tuple(x.shape)}->{tuple(y.shape)}"
-        grid = "-"
+        grid1 = grid2 = "-"
         if s == 1:
+            g1 = fused_mbconv.pass1_geometry(b, h, w, cin, ce, k, sm_count)
             g2 = fused_mbconv.pass2_geometry(b, h, w, cin, ce, cout, k, sm_count)
+            check(g1.ctas >= sm_count, f"block {i}: pass 1 runs {g1.ctas} blocks of threads")
             check(g2.ctas >= sm_count, f"block {i}: pass 2 runs {g2.ctas} blocks of threads")
-            grid = f"{g2.ctas}/{g2.slices}/{g2.p}"
+            grid1 = f"{g1.ctas}/{g1.slices}/{g1.p}"
+            grid2 = f"{g2.ctas}/{g2.slices}/{g2.p}"
         print(f"{i:>3} {k:>1} {s:>1} {shape:>34} {ce:>5} {v2_err:>9.2e} {v2_fast:>9.2e} "
               f"{v2_mod:>9.2e} {v1_err:>9.2e} {float(ref.abs().max()):>9.3e} "
               f"{t['v2']:>8.4f} {t['v2_plain']:>8.4f} {t.get('p1', float('nan')):>8.4f} "
               f"{t.get('p2', float('nan')):>8.4f} "
               f"{t.get('p1_plain', float('nan')) + t.get('p2_plain', float('nan')):>8.4f} "
               f"{t['module']:>8.4f} {bound_ms(work['mbconv_v2'])[0]:>8.4f} "
-              f"{bound_ms(work['mbconv_v2'])[1]:>10} {grid:>12} "
+              f"{bound_ms(work['mbconv_v2'])[1]:>10} {grid1:>12} {grid2:>12} "
+              f"{bound_ms(work['mbconv_pass1'])[0] if s == 1 else float('nan'):>8.4f} "
               f"{bound_ms(work['mbconv_pass2'])[0] if s == 1 else float('nan'):>8.4f}")
 
     print(f"all {len(blocks)} blocks: {total['flop'] / 1e9:.2f} GFLOP, "
@@ -741,7 +749,7 @@ def mbconv_phase() -> list[dict]:
           f"forwards of the same blocks {times['module_s1']:.4f} ms")
     print(f"max abs err vs plain (fast=False): {errs}; pass 1's is of its [B, Ce] sums, "
           f"which reach {max_sums:.4e}")
-    src = {"mbconv_pass1": ("fused_mbconv.cu", "psla_tpu/ops/fused_mbconv.py:182", "p1"),
+    src = {"mbconv_pass1": ("mbconv_pass1.cu", "psla_tpu/ops/fused_mbconv.py:182", "p1"),
            "mbconv_pass2": ("mbconv_pass2.cu", "psla_tpu/ops/fused_mbconv.py:209", "p2"),
            "mbconv_v2": ("mbconv_v2.cu", "psla_tpu/ops/mbconv_vmem.py:185", "v2")}
     records = []

@@ -11,7 +11,11 @@
 //
 // e and d never reach device memory. Each output pixel's sum runs over the
 // expanded channels only, so the output does not depend on the JAX
-// function's row tiles, and this kernel picks its own windows.
+// function's row tiles, and this kernel picks its own windows. Step 0 (the
+// halo staging) and step 2's taps are functions of mbconv_front.cuh, which
+// pass 1 (mbconv_pass1.cu) runs too; step 1's loop is pass 1's expand_chunk,
+// kept inline here because as a call it changed nvcc's register allocation
+// of one of this kernel's instantiations.
 //
 // Bound on an H100 SXM: operations (the two 1x1 products, in full float32
 // on the CUDA cores: 67 TFLOP/s); over B2's 19 stride-1 blocks at the
@@ -64,11 +68,10 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "mbconv_front.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;  // 8 warps
-constexpr int kWarps = kThreads / 32;
-constexpr int kCC = 32;        // expanded channels of one chunk
 constexpr int kMaxP = 64;      // output pixels of one window, at most
 
 struct Params {
@@ -89,47 +92,6 @@ struct Params {
   int xs_stride, gt_stride, w_stride;  // floats
 };
 
-__device__ __forceinline__ float bf16r(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-__device__ __forceinline__ float swish(float v) { return v / (1.f + expf(-v)); }
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void fma4(float* a, float s, const float4 w) {
-  a[0] = fmaf(s, w.x, a[0]);
-  a[1] = fmaf(s, w.y, a[1]);
-  a[2] = fmaf(s, w.z, a[2]);
-  a[3] = fmaf(s, w.w, a[3]);
-}
-
-// e of one halo pixel and 4 channels: bias, swish, zero outside the map
-// (after the swish: SAME pads e, and swish(b1) != 0) or the chunk.
-template <bool kFast>
-__device__ __forceinline__ void store_e(float* es, const float (&a)[4], int pix, int nw,
-                                        int ww, int base_y, int base_x, int h, int w,
-                                        int cq, int nc, const float* b1s) {
-  if (pix >= nw) return;
-  const int ir = base_y + pix / ww, ic = base_x + pix % ww;
-  const bool in = ir >= 0 && ir < h && ic >= 0 && ic < w;
-  float o[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int c = 4 * cq + i;
-    const float v = swish(a[i] + b1s[c]);
-    o[i] = (in && c < nc) ? (kFast ? bf16r(v) : v) : 0.f;
-  }
-  *reinterpret_cast<float4*>(es + pix * kCC + 4 * cq) = make_float4(o[0], o[1], o[2], o[3]);
-}
-
 // Shared memory of one block in floats; every part starts 16-byte aligned.
 __host__ __device__ inline int smem_floats(const Params& p, int k) {
   const int m = k / 2;
@@ -137,36 +99,6 @@ __host__ __device__ inline int smem_floats(const Params& p, int k) {
   const int w1 = p.has_expand ? ((p.cin + 3) & ~3) * kCC : 0;
   return nw * p.xs_stride + nw * kCC + kCC * p.gt_stride + w1 + kCC * p.w_stride +
          (k * k + 3) * kCC;
-}
-
-// Copies a [rows, cols] block of floats (source row stride ld) into shared
-// memory (row stride dst_ld), zero past rows_ok rows and cols_ok columns.
-// vec: 16-byte cp.async (cols, cols_ok, ld, dst_ld and src 16-byte multiples,
-// completed by cp_async_wait_all); else plain loads and stores.
-__device__ __forceinline__ void stage(float* dst, int dst_ld, const float* src, size_t ld,
-                                      int rows, int cols, int rows_ok, int cols_ok,
-                                      bool vec, int tid) {
-  if (vec) {
-    const int q = cols >> 2;
-    for (int i = tid; i < rows * q; i += kThreads) {
-      const int r = i / q, c = 4 * (i - r * q);
-      float* d = dst + r * dst_ld + c;
-      if (r < rows_ok && c < cols_ok)
-        cp_async16(d, src + r * ld + c);
-      else
-        *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-  } else {
-    for (int i = tid; i < rows * cols; i += kThreads) {
-      const int r = i / cols, c = i - r * cols;
-      dst[r * dst_ld + c] = (r < rows_ok && c < cols_ok) ? src[r * ld + c] : 0.f;
-    }
-  }
-}
-
-// Rounds n floats of shared memory to bfloat16 in place.
-__device__ __forceinline__ void round_bf16(float* a, int n, int tid) {
-  for (int i = tid; i < n; i += kThreads) a[i] = bf16r(a[i]);
 }
 
 template <int K, bool kFast, int TN>
@@ -203,27 +135,7 @@ pass2_kernel(const Params p) {
   const bool vec = (ce & 3) == 0 && (cout & 3) == 0;  // 16-byte rows of weights
 
   // 0. the halo window of x, once.
-  if ((cin & 3) == 0) {
-    const int q = cin >> 2;
-    for (int i = tid; i < nw * q; i += kThreads) {
-      const int pix = i / q, v = i - pix * q;
-      const int ir = y0 - m + pix / ww, ic = x0 - m + pix % ww;
-      float* dst = xs + pix * xsS + 4 * v;
-      if (ir >= 0 && ir < h && ic >= 0 && ic < w)
-        cp_async16(dst, xb + (static_cast<size_t>(ir) * w + ic) * cin + 4 * v);
-      else
-        *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-  } else {
-    for (int i = tid; i < nw * cin4; i += kThreads) {
-      const int pix = i / cin4, c = i - pix * cin4;
-      const int ir = y0 - m + pix / ww, ic = x0 - m + pix % ww;
-      float v = 0.f;
-      if (ir >= 0 && ir < h && ic >= 0 && ic < w && c < cin)
-        v = xb[(static_cast<size_t>(ir) * w + ic) * cin + c];
-      xs[pix * xsS + c] = v;
-    }
-  }
+  stage_halo(xs, xsS, xb, nw, ww, y0, x0, m, h, w, cin, cin4, tid);
 
   // The chunk's w1, wd, b1, bd and gate, in flight while other work runs.
   auto stage_front = [&](int c0) {
@@ -310,18 +222,7 @@ pass2_kernel(const Params p) {
         float gd = 0.f;
         if (q < P) {
           const int oy = q / tw, ox = q % tw;
-          float acc_d = 0.f;
-#pragma unroll
-          for (int dw = 0; dw < K; ++dw) {
-            float part = 0.f;
-#pragma unroll
-            for (int dh = 0; dh < K; ++dh) {
-              const float v = es[((oy + dh) * ww + ox + dw) * kCC + lane];
-              part += kFast ? bf16r(v * wdr[dh * K + dw]) : v * wdr[dh * K + dw];
-            }
-            acc_d += part;
-          }
-          const float d = swish(acc_d + bdc);
+          const float d = depthwise_d<K, kFast>(es, wdr, bdc, oy, ox, ww, lane);
           if (y0 + oy < h && x0 + ox < w && lane < nc) gd = d * gc;
         }
         gt[lane * gtS + q] = kFast ? bf16r(gd) : gd;

@@ -3,7 +3,8 @@
 Each kernel source under ``psla_tpu_torch/csrc/`` has a plain C interface and
 is compiled on its own into a shared library for Hopper
 (``-gencode arch=compute_90a,code=sm_90a``), at first use and again whenever
-the source changes (the file name carries a digest of the source). The
+the source or a header under ``csrc/`` changes (the file name carries a
+digest of both, ``source_digest``). The
 libraries go into ``$PSLA_TPU_TORCH_BUILD_DIR`` if that is set, else into
 ``build/psla_tpu_torch/`` of the checkout the package lies in, else (an
 installed package) into ``psla_tpu_torch`` under the user's cache directory.
@@ -45,6 +46,15 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def source_digest(source: Path) -> str:
+    """Digest of a kernel source and of every ``.cuh`` header beside it (by
+    name and content), so that a header edit rebuilds the libraries."""
+    h = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        h.update(b"\0" + header.name.encode() + b"\0" + header.read_bytes())
+    return h.hexdigest()[:16]
+
+
 class CudaLibrary:
     """One source under ``csrc/``, built once per process and loaded.
 
@@ -64,7 +74,7 @@ class CudaLibrary:
         with self._lock:
             if self._lib is not None:
                 return self._lib
-            digest = hashlib.sha256(self.source.read_bytes()).hexdigest()[:16]
+            digest = source_digest(self.source)
             out_dir = build_dir()
             so = out_dir / f"lib{self.stem}_{digest}.so"
             log = so.with_suffix(".log")

@@ -15,21 +15,24 @@ expand + depthwise again, gates, projects and adds the residual.
 
 Kernels (CUDA C++ for sm_90a):
 
-* ``mbconv_pass1`` (``csrc/fused_mbconv.cu``) replaces
+* ``mbconv_pass1`` (``csrc/mbconv_pass1.cu``) replaces
   ``psla_tpu/ops/fused_mbconv.py::_pass1_kernel``;
 * ``mbconv_pass2`` (``csrc/mbconv_pass2.cu``) replaces
-  ``psla_tpu/ops/fused_mbconv.py::_pass2_kernel``. Its output does not
-  depend on ``tile``, so it takes 2-D windows and expanded-channel slices
-  of its own (``pass2_geometry``).
+  ``psla_tpu/ops/fused_mbconv.py::_pass2_kernel``.
+
+Both stage x and take the taps with the same code
+(``csrc/mbconv_front.cuh``). Their outputs do not depend on ``tile``, so each
+takes 2-D windows and expanded-channel slices of its own
+(``pass1_geometry``, ``pass2_geometry``).
 
 ``pass1_plain`` and ``pass2_plain`` are their plain versions: the JAX
 algorithm itself (tiles of ``tile`` flattened rows with a halo of
 ``m*W + m`` rows, the row mask and the per-``dw`` column masks, per-tile
 sums added in tile order), so ``tile`` means the same on the CPU and the
-masking is tested there; ``pass2_plain`` uses ``tile`` as the JAX
-function does, though its result does not depend on it. A CPU tensor
-takes the plain versions; a CUDA tensor launches the kernels or raises. ``LAUNCHES_PASS1`` and
-``LAUNCHES_PASS2`` count the kernels' launches.
+masking is tested there; the kernels' results do not depend on it. A CPU
+tensor takes the plain versions; a CUDA tensor launches the kernels or
+raises. ``LAUNCHES_PASS1`` and ``LAUNCHES_PASS2`` count the kernels'
+launches.
 
 ``fast=True`` rounds the operands of the two 1x1 products to bfloat16 and
 sums in float32, keeps the expanded activation in bfloat16 and takes each
@@ -58,7 +61,7 @@ KEYS = ("w1", "b1", "wd", "bd", "wr", "br", "we", "be", "wp", "bp")
 
 def _bind(lib: ctypes.CDLL):
     lib.psla_mbconv_pass1_launch.argtypes = (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
     )
     lib.psla_mbconv_pass1_launch.restype = ctypes.c_int
 
@@ -70,7 +73,7 @@ def _bind_pass2(lib: ctypes.CDLL):
     lib.psla_mbconv_pass2_launch.restype = ctypes.c_int
 
 
-LIBRARY = CudaLibrary("fused_mbconv.cu", "psla_fused_mbconv", _bind)
+LIBRARY = CudaLibrary("mbconv_pass1.cu", "psla_mbconv_pass1", _bind)
 PASS2_LIBRARY = CudaLibrary("mbconv_pass2.cu", "psla_mbconv_pass2", _bind_pass2)
 
 
@@ -360,6 +363,15 @@ def _p2_proj(tp: int, cout: int):
     return best
 
 
+def _front_cost(nw: int, p: int, cin: int, k: int, has_expand: bool) -> int:
+    """Cycles the front of one window takes for a chunk of 32 expanded
+    channels, roughly: the expand over ``nw`` halo pixels in rounds of 64
+    (16 an input channel), and the taps of ``p`` output pixels (8 warps, 2
+    a scheduler)."""
+    expand = -(-nw // 64) * 16 * _round_up(cin, 4) if has_expand else nw
+    return expand + -(-p // 8) * (2 * k * k + 12) * 2
+
+
 def _p2_smem(nw: int, cin: int, tp: int, tc: int, tn: int, k: int,
              has_expand: bool) -> int:
     """Shared memory of one block, floats -> bytes (mirrors smem_floats()
@@ -406,12 +418,10 @@ def pass2_geometry(b: int, h: int, w: int, cin: int, ce: int, cout: int, k: int,
             if smem > SMEM_LIMIT:
                 continue
             # cycles a chunk of 32 expanded channels takes, roughly: the
-            # expand in rounds of 64 halo rows (16 an input channel), the
-            # projection (32 channels x 4 pixels x tn, per warp a scheduler
-            # runs) and the taps (8 warps, 2 a scheduler)
-            expand = -(-nw // 64) * 16 * _round_up(cin, 4) if has_expand else nw
-            taps = -(-(4 * tp) // 8) * (2 * k * k + 12) * 2
-            cost = nh * nwin_w * (expand + 128 * proj[0] + taps)
+            # front, and the projection (32 channels x 4 pixels x tn, per
+            # warp a scheduler runs)
+            front = _front_cost(nw, 4 * tp, cin, k, has_expand)
+            cost = nh * nwin_w * (front + 128 * proj[0])
             key = (cost, -p)
             if best is None or key < best[0]:
                 best = (key, th, tw, nh * nwin_w, tp, proj[1], proj[2], smem)
@@ -433,6 +443,92 @@ def pass2_geometry(b: int, h: int, w: int, cin: int, ce: int, cout: int, k: int,
                          threads=P2_THREADS, smem=smem)
 
 
+# ------------------------------------------------------------------ pass-1 geometry
+
+P1_MAX_P = 256  # output pixels of one window, at most (taps: 32 a warp)
+
+
+@dataclasses.dataclass(frozen=True)
+class Pass1Geometry:
+    """Launch geometry of the pass-1 kernel (``csrc/mbconv_pass1.cu``).
+
+    A block of ``threads`` threads owns one ``th`` x ``tw`` window of output
+    pixels of one clip and one slice of ``slice_len`` expanded channels; the
+    grid is ``windows`` (over all clips) x ``slices``, and the per-window
+    sums [B, ``per_clip``, Ce] are added in window order by a second
+    kernel."""
+
+    th: int
+    tw: int
+    per_clip: int     # windows a clip: ceil(h / th) * ceil(w / tw)
+    windows: int      # over all clips: b * per_clip
+    slices: int       # S
+    slice_len: int    # expanded channels of a slice (a multiple of P2_CHUNK)
+    p: int            # th * tw
+    threads: int
+    smem: int         # dynamic shared memory, bytes
+
+    @property
+    def ctas(self) -> int:
+        return self.windows * self.slices
+
+
+def _p1_smem(nw: int, cin: int, k: int, has_expand: bool) -> int:
+    """Shared memory of one block, floats -> bytes (mirrors smem_floats()
+    in csrc/mbconv_pass1.cu)."""
+    xs = nw * (_round_up(cin, 8) + 4)          # the halo window of x
+    es = nw * P2_CHUNK                          # e of one chunk
+    w1 = _round_up(cin, 4) * P2_CHUNK if has_expand else 0  # w1's chunk
+    # b1; wd and bd in two buffers; the 8 warps' sums in two tables
+    small = P2_CHUNK + 2 * (k * k + 1) * P2_CHUNK + 2 * 8 * P2_CHUNK
+    return 4 * (xs + es + w1 + small)
+
+
+@functools.lru_cache(maxsize=None)
+def pass1_geometry(b: int, h: int, w: int, cin: int, ce: int, k: int, sm_count: int,
+                   has_expand: bool | None = None) -> Pass1Geometry:
+    """The pass-1 kernel's window and slices for one block.
+
+    The window is the one with the least work of the front (the expand over
+    the halo in 64-row rounds, the taps: pass 2's model without the
+    projection) whose computed pixels outside the map stay within
+    ``P2_MAX_WASTE`` and whose shared memory fits. Windows reach
+    ``P1_MAX_P`` pixels: the work that model counts over B2's blocks stops
+    falling there. Then S is the smallest number of slices of whole chunks
+    that gives at least two blocks of threads an SM (or one chunk a slice).
+    Pass 1's sums do not depend on the JAX function's ``tile``, so the
+    geometry does not either. ``has_expand`` defaults to Ce != Cin."""
+    m = k // 2
+    if has_expand is None:
+        has_expand = ce != cin
+    best = None
+    for th in range(1, min(h, P1_MAX_P) + 1):
+        for tw in range(1, min(w, P1_MAX_P // th) + 1):
+            nh, nwin_w = -(-h // th), -(-w // tw)
+            if 1 - h * w / (nh * th * nwin_w * tw) > P2_MAX_WASTE:
+                continue
+            nw = (th + 2 * m) * (tw + 2 * m)
+            smem = _p1_smem(nw, cin, k, has_expand)
+            if smem > SMEM_LIMIT:
+                continue
+            cost = nh * nwin_w * _front_cost(nw, th * tw, cin, k, has_expand)
+            key = (cost, -th * tw)
+            if best is None or key < best[0]:
+                best = (key, th, tw, nh * nwin_w, smem)
+    if best is None:
+        raise ValueError(f"pass 1: no window fits Cin {cin}, k {k}")
+    _, th, tw, per_clip, smem = best
+    windows = b * per_clip
+    chunks = -(-ce // P2_CHUNK)
+    for s in range(1, chunks + 1):
+        slice_len = -(-chunks // s) * P2_CHUNK
+        slices = -(-ce // slice_len)
+        if windows * slices >= 2 * sm_count:
+            break
+    return Pass1Geometry(th=th, tw=tw, per_clip=per_clip, windows=windows, slices=slices,
+                         slice_len=slice_len, p=th * tw, threads=P2_THREADS, smem=smem)
+
+
 # ------------------------------------------------------------------ kernels
 
 
@@ -447,21 +543,29 @@ def _sm_count(device: torch.device) -> int:
 
 def mbconv_pass1(x: torch.Tensor, folded: dict, kernel: int, fast: bool = True,
                  tile: int = 2048) -> torch.Tensor:
-    """Pass 1 (kernel on CUDA, plain version on the CPU): [B, Ce] sums."""
+    """Pass 1 (kernel on CUDA, plain version on the CPU): [B, Ce] sums.
+
+    ``tile`` is the JAX function's row tile: checked, and used by the plain
+    version; the sums do not depend on it, and the kernel takes its windows
+    and slices from ``pass1_geometry``."""
     check_args(x, folded, kernel, 1, (torch.float32,), "mbconv_pass1")
+    if tile <= 0:
+        raise ValueError(f"mbconv_pass1: tile must be positive, got {tile}")
     if x.device.type == "cpu":
         return pass1_plain(x, folded, kernel, fast, tile)
     if x.shape[0] > 65535:
         raise ValueError(f"mbconv_pass1: at most 65535 clips, got {x.shape[0]}")
-    b, h, w, cin, hw, m, hl, tile, n_tiles = _geometry(x, kernel, tile)
+    b, h, w, cin = x.shape
     ce = folded["wd"].shape[1]
-    partial = torch.empty((b, n_tiles, ce), dtype=torch.float32, device=x.device)
+    geo = pass1_geometry(b, h, w, cin, ce, kernel, _sm_count(x.device), "w1" in folded)
+    partial = torch.empty((b, geo.per_clip, ce), dtype=torch.float32, device=x.device)
     sums = torch.empty((b, ce), dtype=torch.float32, device=x.device)
     lib = build()
     err = lib.psla_mbconv_pass1_launch(
         x.data_ptr(), _ptr(folded, "w1"), _ptr(folded, "b1"), folded["wd"].data_ptr(),
         folded["bd"].data_ptr(), partial.data_ptr(), sums.data_ptr(),
-        b, h, w, cin, ce, kernel, tile, int(fast), int("w1" in folded),
+        b, h, w, cin, ce, kernel, int(fast), int("w1" in folded),
+        geo.th, geo.tw, geo.slices, geo.slice_len, geo.threads, geo.smem,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:

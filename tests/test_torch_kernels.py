@@ -151,9 +151,31 @@ def test_build_dir_rule(monkeypatch, tmp_path):
     monkeypatch.setenv("PSLA_TPU_TORCH_BUILD_DIR", str(tmp_path))
     assert cuda_build.build_dir() == tmp_path
     libs = (fbank_cuda.LIBRARY, v1.LIBRARY, v1.PASS2_LIBRARY, v2.LIBRARY)
-    assert {lib.source.name for lib in libs} == {"fbank.cu", "fused_mbconv.cu",
+    assert {lib.source.name for lib in libs} == {"fbank.cu", "mbconv_pass1.cu",
                                                  "mbconv_pass2.cu", "mbconv_v2.cu"}
     assert all(lib.source.exists() for lib in libs)
+
+
+def test_build_digest_covers_headers(tmp_path):
+    """A library's digest changes with its source and with any .cuh header
+    under csrc/, and with nothing else there."""
+    src = tmp_path / "kernel.cu"
+    src.write_text('#include "front.cuh"\n')
+    header = tmp_path / "front.cuh"
+    header.write_text("// v1\n")
+    first = cuda_build.source_digest(src)
+    (tmp_path / "notes.txt").write_text("not a header")
+    (tmp_path / "other.cu").write_text("// another kernel")
+    assert cuda_build.source_digest(src) == first
+    header.write_text("// v2\n")
+    second = cuda_build.source_digest(src)
+    assert second != first
+    (tmp_path / "more.cuh").write_text("")
+    assert cuda_build.source_digest(src) != second
+    src.write_text('#include "front.cuh"\n// edited\n')
+    assert cuda_build.source_digest(src) not in (first, second)
+    # the package's two v1 passes share csrc/mbconv_front.cuh
+    assert (cuda_build.CSRC / "mbconv_front.cuh").exists()
 
 
 # ------------------------------------------------------------------ MBConv
@@ -215,11 +237,13 @@ def test_mbconv_v2_kernel_matches_plain_version_on_card(shape, fast):
                                atol=5e-2, rtol=5e-2)
 
 
-# (shape, clips): the stride-1 shapes above at 3 clips, and two B2 shapes
-# at 2 clips whose pass 2 splits the expanded channels (S > 1) over windows
-# that do not divide the map's width
+# (shape, clips): the stride-1 shapes above at 3 clips, two B2 shapes at 2
+# clips whose pass 2 splits the expanded channels (S > 1) over windows that
+# do not divide the map's width, and a k5 shape on a W=33 map whose pass 1
+# runs nine slices of one chunk
 V1_CARD_CASES = [(s, 3) for s in MBCONV_SHAPES if s[1] == 1] + [
     ((3, 1, 208, 352, 6, 4, 33), 2), ((5, 1, 120, 120, 6, 8, 66), 2),
+    ((5, 1, 48, 48, 6, 4, 33), 2),
 ]
 
 
@@ -235,7 +259,9 @@ def test_mbconv_v1_kernels_match_plain_versions_on_card(shape, clips, fast, tile
     x = nhwc_input(clips, h, w, cin, seed=cout).cuda()
     p1, p2 = v1.LAUNCHES_PASS1, v1.LAUNCHES_PASS2
     sums = v1.mbconv_pass1(x, folded, kernel, fast, tile)
+    again = v1.mbconv_pass1(x, folded, kernel, fast, tile)
     torch.cuda.synchronize()
+    assert torch.equal(sums, again)  # no atomics
     ref = v1.pass1_plain(x, folded, kernel, fast, tile)
     # a sum of h*w activations: the per-element bar times h*w
     np.testing.assert_allclose(sums.cpu().numpy(), ref.cpu().numpy(),
@@ -249,7 +275,7 @@ def test_mbconv_v1_kernels_match_plain_versions_on_card(shape, clips, fast, tile
     np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), **bars(fast, 2e-6))
     block = ops.fused_mbconv_eval(x, folded, kernel, fast, tile)
     torch.cuda.synchronize()
-    assert (v1.LAUNCHES_PASS1, v1.LAUNCHES_PASS2) == (p1 + 2, p2 + 3)
+    assert (v1.LAUNCHES_PASS1, v1.LAUNCHES_PASS2) == (p1 + 3, p2 + 3)
     ref = v1.fused_mbconv_eval_plain(x, folded, kernel, fast, tile)
     np.testing.assert_allclose(block.cpu().numpy(), ref.cpu().numpy(), **bars(fast, 2e-6))
 

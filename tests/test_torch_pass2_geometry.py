@@ -17,30 +17,12 @@ import torch
 import torch.nn.functional as F
 
 from psla_tpu_torch import ops
-from psla_tpu_torch.models.efficientnet import efficientnet_arch
 from psla_tpu_torch.ops import fused_mbconv as v1
-from tests.torch_mbconv_fixtures import nhwc_input, random_block
+from tests.torch_mbconv_fixtures import b2_stride1_blocks, nhwc_input, random_block
 
 torch.set_num_threads(2)
 
 SM_COUNT = 132
-
-
-def b2_stride1_blocks():
-    """[(k, h, w, cin, ce, cout)] of B2's 19 stride-1 blocks at 64 x 528."""
-    _, stages, _ = efficientnet_arch(2)
-    h, w, out = 64, 528, []
-    for args, repeats in stages:
-        for r in range(repeats):
-            stride = args.stride if r == 0 else 1
-            cin = args.in_filters if r == 0 else args.out_filters
-            if stride == 1:
-                out.append((args.kernel, h, w, cin, cin * args.expand_ratio,
-                            args.out_filters))
-            h, w = -(-h // stride), -(-w // stride)
-    return out
-
-
 B2_BLOCKS = b2_stride1_blocks()
 
 

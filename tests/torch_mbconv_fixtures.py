@@ -9,7 +9,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from psla_tpu_torch.models.efficientnet import MBConvBlock
+from psla_tpu_torch.models.efficientnet import MBConvBlock, efficientnet_arch
 
 
 def random_block(kernel: int, stride: int, cin: int, cout: int, expand: int,
@@ -40,3 +40,19 @@ def random_block(kernel: int, stride: int, cin: int, cout: int, expand: int,
 def nhwc_input(b: int, h: int, w: int, c: int, seed: int) -> torch.Tensor:
     return torch.from_numpy(
         np.random.default_rng(seed).standard_normal((b, h, w, c)).astype(np.float32))
+
+
+def b2_stride1_blocks() -> list[tuple[int, int, int, int, int, int]]:
+    """[(k, h, w, cin, ce, cout)] of EfficientNet-B2's 19 stride-1 blocks
+    at the serving shape (64 x 528 after the stem)."""
+    _, stages, _ = efficientnet_arch(2)
+    h, w, out = 64, 528, []
+    for args, repeats in stages:
+        for r in range(repeats):
+            stride = args.stride if r == 0 else 1
+            cin = args.in_filters if r == 0 else args.out_filters
+            if stride == 1:
+                out.append((args.kernel, h, w, cin, cin * args.expand_ratio,
+                            args.out_filters))
+            h, w = -(-h // stride), -(-w // stride)
+    return out
