@@ -1,92 +1,137 @@
 // Kaldi log-mel filterbank: [B, N] float32 waveforms -> [B, T, n_mels].
 //
 // Replaces the TPU kernel psla_tpu/frontend/fbank_pallas.py::_fbank_kernel.
-// It computes the same function as that kernel and as the 'gemm' lowering in
-// psla_tpu_torch/frontend/fbank.py, which is its plain version:
+// It computes the same function as that kernel and as the 'fft' lowering in
+// psla_tpu_torch/frontend/fbank.py, which is its plain version, in that
+// lowering's order: for each frame of `window` samples,
 //
-//   y     = frame @ A          A [window, 2*nbins]: DC removal, pre-emphasis,
-//                              Hann window and real DFT folded into one matrix
-//   power = y_cos^2 + y_sin^2
-//   mel   = power @ banks^T    banks [n_mels, nbins]
+//   x     = frame - mean(frame)                 (if remove_dc)
+//   x[j] -= preemph * x[j-1], x[-1] := x[0]
+//   x    *= window                              (a table: any window type)
+//   X     = rfft(x zero-padded to nfft)
+//   mel   = sum over each mel row's run of bins of weight * |X[k]|^2
 //   out   = log(max(mel, FLT_EPSILON)), and 0 for frames >= n_valid
 //
 // with n_valid = frames(min(length, N)) capped at T, and the time axis
 // zero-padded or cut to T.
 //
-// Bound on an H100 SXM: the function is bound by bytes. At B=16, T=1056 (the
-// serving micro-batch) it moves ~20 MB (waveforms in, log-mel out): ~6 us at
-// 3.35 TB/s. Its operations are far fewer: a frame needs a 512-point real
-// FFT (~11.5k flop), the banks' ~500 non-zeros and ~3k flop of DC removal,
-// pre-emphasis, window, power and log, ~0.26 GFLOP in all: ~4 us at the
-// 67 TFLOP/s float32 CUDA-core rate.
+// Bound on an H100 SXM: bytes. At B=16, T=1056 (the serving micro-batch)
+// the function moves ~18 MB (the valid frames' samples in, the log-mel
+// out): ~5.5 us at 3.35 TB/s. Its operations are fewer: a 512-point real
+// FFT (~11.5k flop), the banks' 504 non-zeros and ~3k flop of DC removal,
+// pre-emphasis, window, power and log a frame, ~0.23 GFLOP in all: ~3.5 us
+// at the 67 TFLOP/s float32 CUDA-core rate.
 //
-// This kernel instead does both products dense, 2*400*514 + 2*257*128 flop a
-// frame, ~30x that: 8.1 GFLOP, ~0.12 ms at 67 TFLOP/s. So its design alone
-// keeps it ~20x above the bound; an FFT or a tensor-core product is the way
-// down (later work).
-//
-// Design. One block per (tile of kTM frames, clip). The block stages the
-// tile's (kTM-1)*shift + window samples in shared memory once: frame i is the
-// contiguous slice [i*shift, i*shift + window), so no frame matrix is ever
-// written to device memory (the XLA lowering writes it, 2.5x the waveform).
-// A (0.82 MB, resident in L2) streams through shared memory in chunks of
-// kKC window rows; each warp owns kRows frames and each lane 9 bins, so a
-// frame sample is a broadcast read and the A row is read conflict-free.
-// The power spectrum stays in shared memory, and the mel product streams the
-// dense transposed banks the same way. Tiles wholly past n_valid only write
-// zeros. Everything accumulates in float32 FMA. The TPU kernel's 'x3' mode
-// (three bf16 passes for precision='high') stood in for a 3-pass dot that the
-// TPU lacked; here every precision runs this float32 path, which meets the
-// tighter of the two bars (2e-4 log-mel).
-//
-// Not yet done (later work): tensor cores (a TF32x3 split through wgmma),
-// the banks' sparsity (each mel row has ~10 non-zero bins), and the 12% of
-// lanes that compute the zero padding bins 257..287.
+// Design. One block of threads per (tile of kTM frames, clip) stages the
+// tile's (kTM-1)*shift + window samples in shared memory once (frame i is
+// the slice [i*shift, i*shift + window), so no frame matrix goes to device
+// memory). Each warp then takes one frame at a time:
+//   1. the mean is a warp reduction; each lane builds its points of the
+//      processed, zero-padded frame from the staged samples (pre-emphasis
+//      reads the neighbouring sample, the window a table), packed as the
+//      complex sequence z[n] = x[2n] + i x[2n+1] of half = nfft/2 points;
+//   2. a complex FFT of z in registers: point n = a + L*r lies in lane a,
+//      register r (L = min(32, half) lanes, R = half/L registers). An
+//      R-point DIF FFT in registers, a twiddle W_half^(a*k2), then an
+//      L-point DIF FFT across lanes by xor shuffles. Lane a register r ends
+//      with Z[bitrev_R(r) + R*bitrev_L(a)];
+//   3. Z goes to shared memory (padded so the bit-reversed stores hit
+//      distinct banks); each lane splits Z[k] and Z[half-k] into the real
+//      FFT's bin k, k = 0..half, and stores its power;
+//   4. each lane sums its mel rows over their runs of bins (the banks'
+//      non-zeros only: (first bin, count, offset) and packed weights), takes
+//      the log and writes one frame's n_mels values coalesced.
+// Precision: steps 1-3 run in float64, from the float32 samples and window
+// to each bin's power, which is then rounded to float32 for the mel sums
+// (float32 FMA) and the log. A float32 FFT rounds relative to the frame's
+// energy, and after pre-emphasis the lowest mel bands of a frame hold
+// ~1e-7 of it: there float32 costs up to a few 1e-3 in the log-mel (on an
+// H100 the 'fft' lowering, float32 through cuFFT, is 3.7e-3 off the exact
+// log-mel on chip_smoke.py's tones). In float64 the kernel stays within
+// ~1e-6 of the exact function (its plain version, the 'fft64' lowering).
+// float64 runs at half the float32 rate on an H100, and a 64-bit shuffle
+// is two; the FFT is a small part of the bound either way. Every twiddle
+// is computed in float64 on the host and read from a float64 table
+// (fbank_cuda.kernel_tables), so nothing depends on sincos in the kernel.
+// The same arithmetic serves every `precision` value. Tiles wholly past
+// n_valid only write zeros; frames past n_valid in a tile do no arithmetic.
 
 #include <cfloat>
-#include <cstdint>
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kTM = 32;                // frames per block
-constexpr int kThreads = 256;          // 8 warps
-constexpr int kRows = kTM / (kThreads / 32);  // frames per warp: 4
-constexpr int kBinIters = 9;           // bins per lane: lane + 32*j
-constexpr int kNBP = 32 * kBinIters;   // padded spectrum bins: 288
-constexpr int kKC = 16;                // rows of A per shared-memory chunk
-constexpr int kMelIters = 4;           // mel columns per lane: lane + 32*j
-constexpr int kMelP = 32 * kMelIters;  // padded mel columns: 128
-constexpr int kKB = 64;                // rows of banks^T per chunk
-static_assert(kKB * kMelP <= kKC * 2 * kNBP, "bank chunk must fit the A chunk");
+constexpr int kTM = 32;                  // frames per block
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kMaxHalf = 256;            // nfft <= 512
+constexpr int kMelIters = 4;             // mel rows per lane: lane + 32*j
+constexpr int kMaxMels = 32 * kMelIters;
 
+__device__ __forceinline__ double2 cadd(double2 a, double2 b) {
+  return make_double2(a.x + b.x, a.y + b.y);
+}
+__device__ __forceinline__ double2 csub(double2 a, double2 b) {
+  return make_double2(a.x - b.x, a.y - b.y);
+}
+__device__ __forceinline__ double2 cmul(double2 a, double2 b) {
+  return make_double2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+
+// Shared-memory slot of Z[i]: one slot of padding every 16, so that the
+// bit-reversed stores of one register by 16 lanes land in distinct banks.
+__device__ __forceinline__ int zslot(int i) { return i + (i >> 4); }
+
+__host__ __device__ constexpr int bitrev(int x, int bits) {
+  int y = 0;
+  for (int i = 0; i < bits; ++i) y |= ((x >> i) & 1) << (bits - 1 - i);
+  return y;
+}
+
+__host__ __device__ constexpr int ilog2(int x) { return x <= 1 ? 0 : 1 + ilog2(x / 2); }
+
+// Floats of the per-warp scratch: Z (double2, padded) and the power
+// spectrum (float); a multiple of 4 keeps each warp's Z 16-byte aligned.
+__host__ __device__ constexpr int zfloats(int half) {
+  return 4 * ((half - 1) + ((half - 1) >> 4) + 1);
+}
+__host__ __device__ constexpr int warp_floats(int half) {
+  return (zfloats(half) + half + 1 + 3) / 4 * 4;
+}
+
+template <int R>
 __global__ void __launch_bounds__(kThreads, 2)
-fbank_kernel(const float* __restrict__ wav,      // [B, n]
-             const int* __restrict__ lengths,    // [B] or null (all n)
-             const float* __restrict__ a_pad,    // [k_pad, 2, kNBP]
-             const float* __restrict__ banks_t,  // [kb_pad, kMelP]
-             float* __restrict__ out,            // [B, target, n_mels]
-             int n, int target, int window, int shift, int k_pad,
-             int nbins, int n_mels, int span) {
+fbank_kernel(const float* __restrict__ wav,         // [B, n]
+             const int* __restrict__ lengths,       // [B] or null (all n)
+             const float* __restrict__ window,      // [ws]
+             const double2* __restrict__ twiddle,   // [half + 1]: W_nfft^k
+             const double2* __restrict__ twiddle2,  // [R, L]: W_half^(a*k2)
+             const int* __restrict__ mel_runs,      // [n_mels, 3]
+             const float* __restrict__ mel_weights,
+             float* __restrict__ out,               // [B, target, n_mels]
+             int n, int target, int ws, int shift, int log2_l, int n_mels,
+             int remove_dc, double preemph, int span) {
   extern __shared__ float4 smem4[];
   float* samples = reinterpret_cast<float*>(smem4);  // [span]
-  float* chunk = samples + span;                     // [kKC, 2, kNBP]
-  float* power = chunk + kKC * 2 * kNBP;             // [kTM, kNBP]
+  const int L = 1 << log2_l;
+  const int half = R * L;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int a = lane & (L - 1);  // lanes >= L mirror lane a (half < 32)
+  float* scratch = samples + span + warp * warp_floats(half);
+  double2* zbuf = reinterpret_cast<double2*>(scratch);
+  float* pbuf = scratch + zfloats(half);
 
   const int b = blockIdx.y;
   const int t0 = blockIdx.x * kTM;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int r0 = (tid >> 5) * kRows;
-
   const int len = lengths ? min(lengths[b], n) : n;
-  int n_valid = len >= window ? 1 + (len - window) / shift : 0;
+  int n_valid = len >= ws ? 1 + (len - ws) / shift : 0;
   n_valid = min(n_valid, target);
 
   float* out_b = out + static_cast<size_t>(b) * target * n_mels;
   if (t0 >= n_valid) {  // the whole tile is padding: zeros, no arithmetic
-    for (int i = tid; i < kTM * n_mels; i += kThreads) {
+    for (int i = threadIdx.x; i < kTM * n_mels; i += kThreads) {
       const int t = t0 + i / n_mels;
       if (t < target) out_b[static_cast<size_t>(t) * n_mels + i % n_mels] = 0.f;
     }
@@ -94,127 +139,170 @@ fbank_kernel(const float* __restrict__ wav,      // [B, n]
   }
 
   // Stage the tile's samples. Samples past n are zero; frames that read
-  // them are past n_valid and masked below.
+  // them are past n_valid and are not computed.
   const float* wav_b = wav + static_cast<size_t>(b) * n;
   const long long base = static_cast<long long>(t0) * shift;
-  for (int i = tid; i < span; i += kThreads) {
+  for (int i = threadIdx.x; i < span; i += kThreads) {
     const long long g = base + i;
     samples[i] = g < n ? wav_b[g] : 0.f;
   }
 
-  // y = frames @ A for this warp's kRows frames and this lane's bins.
-  float acc_c[kRows][kBinIters];
-  float acc_s[kRows][kBinIters];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i)
-#pragma unroll
-    for (int j = 0; j < kBinIters; ++j) acc_c[i][j] = acc_s[i][j] = 0.f;
+  __syncthreads();
 
-  for (int k0 = 0; k0 < k_pad; k0 += kKC) {
-    __syncthreads();  // the previous chunk is consumed (and samples staged)
-    const float4* src =
-        reinterpret_cast<const float4*>(a_pad + static_cast<size_t>(k0) * 2 * kNBP);
-    float4* dst = reinterpret_cast<float4*>(chunk);
-    for (int i = tid; i < kKC * 2 * kNBP / 4; i += kThreads) dst[i] = src[i];
-    __syncthreads();
-#pragma unroll 2
-    for (int kk = 0; kk < kKC; ++kk) {
-      float f[kRows];
+  for (int f = warp; f < kTM; f += kWarps) {
+    const int t = t0 + f;
+    if (t >= target) break;
+    float* orow = out_b + static_cast<size_t>(t) * n_mels;
+    if (t >= n_valid) {
+      for (int m = lane; m < n_mels; m += 32) orow[m] = 0.f;
+      continue;
+    }
+    const float* s = samples + f * shift;
+
+    // 1. mean, pre-emphasis, window, packing.
+    double mu = 0.0;
+    if (remove_dc) {
+      double sum = 0.0;
+      for (int j = lane; j < ws; j += 32) sum += s[j];
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) f[i] = samples[(r0 + i) * shift + k0 + kk];
-      const float* ac = chunk + kk * 2 * kNBP;
-      const float* as = ac + kNBP;
+      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      mu = sum / ws;
+    }
+    double2 v[R];
 #pragma unroll
-      for (int j = 0; j < kBinIters; ++j) {
-        const float c = ac[lane + 32 * j];
-        const float s = as[lane + 32 * j];
+    for (int r = 0; r < R; ++r) {
+      double p[2];
 #pragma unroll
-        for (int i = 0; i < kRows; ++i) {
-          acc_c[i][j] = fmaf(f[i], c, acc_c[i][j]);
-          acc_s[i][j] = fmaf(f[i], s, acc_s[i][j]);
+      for (int e = 0; e < 2; ++e) {
+        const int j = 2 * (a + L * r) + e;
+        double x = 0.0;
+        if (j < ws) {
+          const double cur = s[j] - mu;
+          const double prev = s[j > 0 ? j - 1 : 0] - mu;
+          x = (cur - preemph * prev) * __ldg(window + j);
         }
+        p[e] = x;
+      }
+      v[r] = make_double2(p[0], p[1]);
+    }
+
+    // 2. complex FFT of half points: R-point DIF in registers (register r
+    // then holds bin bitrev_R(r)), the twiddle, L-point DIF across lanes.
+#pragma unroll
+    for (int h = R / 2; h >= 1; h >>= 1) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (r & h) continue;
+        const double2 top = v[r], bot = v[r + h];
+        v[r] = cadd(top, bot);
+        // W_2h^j = W_nfft^(j * half / h)
+        v[r + h] = cmul(csub(top, bot), __ldg(twiddle + (r & (h - 1)) * (2 * half / (2 * h))));
       }
     }
-  }
-
 #pragma unroll
-  for (int i = 0; i < kRows; ++i)
+    for (int r = 0; r < R; ++r)
+      v[r] = cmul(v[r], __ldg(twiddle2 + bitrev(r, ilog2(R)) * L + a));
 #pragma unroll
-    for (int j = 0; j < kBinIters; ++j)
-      power[(r0 + i) * kNBP + lane + 32 * j] =
-          acc_c[i][j] * acc_c[i][j] + acc_s[i][j] * acc_s[i][j];
-
-  // mel = power @ banks^T, the banks streamed through the A chunk's space.
-  float acc_m[kRows][kMelIters];
+    for (int st = 0; st < 5; ++st) {
+      if (st >= log2_l) break;
+      const int h = (L >> 1) >> st;
+      const bool bottom = lane & h;
+      // top: v + o; bottom: (o - v) * W_2h^(a mod h), as one form for both
+      const double sign = bottom ? -1.0 : 1.0;
+      const double2 w = bottom ? __ldg(twiddle + (a & (h - 1)) * (half / h))
+                               : make_double2(1.0, 0.0);
 #pragma unroll
-  for (int i = 0; i < kRows; ++i)
-#pragma unroll
-    for (int j = 0; j < kMelIters; ++j) acc_m[i][j] = 0.f;
-
-  for (int kb0 = 0; kb0 < nbins; kb0 += kKB) {
-    __syncthreads();  // power written; the chunk is free
-    const float4* src =
-        reinterpret_cast<const float4*>(banks_t + static_cast<size_t>(kb0) * kMelP);
-    float4* dst = reinterpret_cast<float4*>(chunk);
-    for (int i = tid; i < kKB * kMelP / 4; i += kThreads) dst[i] = src[i];
-    __syncthreads();
-    const int kend = min(kKB, nbins - kb0);
-    for (int kk = 0; kk < kend; ++kk) {
-      float p[kRows];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) p[i] = power[(r0 + i) * kNBP + kb0 + kk];
-#pragma unroll
-      for (int j = 0; j < kMelIters; ++j) {
-        const float w = chunk[kk * kMelP + lane + 32 * j];
-#pragma unroll
-        for (int i = 0; i < kRows; ++i) acc_m[i][j] = fmaf(p[i], w, acc_m[i][j]);
+      for (int r = 0; r < R; ++r) {
+        const double2 o = make_double2(__shfl_xor_sync(0xffffffffu, v[r].x, h),
+                                       __shfl_xor_sync(0xffffffffu, v[r].y, h));
+        v[r] = cmul(make_double2(fma(v[r].x, sign, o.x), fma(v[r].y, sign, o.y)), w);
       }
     }
-  }
 
+    // 3. Z to shared memory, then the real FFT's bins and their power.
+    if (lane < L) {
+      const int ra = log2_l ? static_cast<int>(__brev(a) >> (32 - log2_l)) : 0;
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int t = t0 + r0 + i;
-    if (t >= target) continue;
-    const bool valid = t < n_valid;
+      for (int r = 0; r < R; ++r) zbuf[zslot(bitrev(r, ilog2(R)) + R * ra)] = v[r];
+    }
+    __syncwarp();
+    for (int k = lane; k <= half; k += 32) {
+      const double2 zk = zbuf[zslot(k & (half - 1))];
+      const double2 zc = zbuf[zslot((half - k) & (half - 1))];
+      const double2 e = make_double2(zk.x + zc.x, zk.y - zc.y);  // Z[k] + conj Z[half-k]
+      const double2 d = make_double2(zk.x - zc.x, zk.y + zc.y);  // Z[k] - conj Z[half-k]
+      const double2 w = __ldg(twiddle + k);
+      // X[k] = (e - i W^k d) / 2
+      const double xr = 0.5 * (e.x + (w.x * d.y + w.y * d.x));
+      const double xi = 0.5 * (e.y - (w.x * d.x - w.y * d.y));
+      pbuf[k] = static_cast<float>(xr * xr + xi * xi);
+    }
+    __syncwarp();
+
+    // 4. mel rows over their runs of bins, log, coalesced store.
 #pragma unroll
     for (int j = 0; j < kMelIters; ++j) {
       const int m = lane + 32 * j;
-      if (m < n_mels)
-        out_b[static_cast<size_t>(t) * n_mels + m] =
-            valid ? logf(fmaxf(acc_m[i][j], FLT_EPSILON)) : 0.f;
+      if (m >= n_mels) break;
+      const int first = __ldg(mel_runs + 3 * m);
+      const int count = __ldg(mel_runs + 3 * m + 1);
+      const float* wm = mel_weights + __ldg(mel_runs + 3 * m + 2);
+      float acc = 0.f;
+      for (int i = 0; i < count; ++i) acc = fmaf(pbuf[first + i], __ldg(wm + i), acc);
+      orow[m] = logf(fmaxf(acc, FLT_EPSILON));
     }
   }
+}
+
+template <int R>
+int launch(const void* wav, const void* lengths, const void* window,
+           const void* twiddle, const void* twiddle2, const void* mel_runs,
+           const void* mel_weights, void* out, int batch, int n, int target,
+           int ws, int shift, int log2_l, int n_mels, int remove_dc,
+           double preemph, cudaStream_t stream) {
+  const int half = R << log2_l;
+  const int span = ((kTM - 1) * shift + ws + 3) / 4 * 4;
+  const size_t smem = (static_cast<size_t>(span) + kWarps * warp_floats(half)) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      fbank_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((target + kTM - 1) / kTM, batch);
+  fbank_kernel<R><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(wav), static_cast<const int*>(lengths),
+      static_cast<const float*>(window), static_cast<const double2*>(twiddle),
+      static_cast<const double2*>(twiddle2), static_cast<const int*>(mel_runs),
+      static_cast<const float*>(mel_weights), static_cast<float*>(out), n, target,
+      ws, shift, log2_l, n_mels, remove_dc, preemph, span);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shape limits the wrapper checks before it calls: nbins <= 288,
-// n_mels <= 128, k_pad a multiple of 16 and >= window, kb_pad a multiple
-// of 64 and >= nbins. Returns the CUDA error of the launch (0 on success).
-int psla_fbank_launch(const void* wav, const void* lengths, const void* a_pad,
-                      const void* banks_t, void* out, int batch, int n,
-                      int target, int window, int shift, int k_pad, int nbins,
-                      int kb_pad, int n_mels, void* stream) {
-  if (nbins > kNBP || n_mels > kMelP || k_pad % kKC || k_pad < window ||
-      kb_pad % kKB || kb_pad < nbins)
+// The tables are fbank_cuda.kernel_tables(config) on the device. Limits the
+// wrapper checks before it calls: nfft a power of two in [2, 512] and
+// >= ws, n_mels <= 128. Returns the CUDA error of the launch (0 on success).
+int psla_fbank_launch(const void* wav, const void* lengths, const void* window,
+                      const void* twiddle, const void* twiddle2,
+                      const void* mel_runs, const void* mel_weights, void* out,
+                      int batch, int n, int target, int ws, int shift, int nfft,
+                      int n_mels, int remove_dc, double preemph, void* stream) {
+  if (nfft < 2 || nfft > 2 * kMaxHalf || (nfft & (nfft - 1)) || ws < 1 || ws > nfft ||
+      shift < 1 || n_mels < 1 || n_mels > kMaxMels)
     return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0 || target == 0) return 0;
-  const int span = ((kTM - 1) * shift + k_pad + 3) / 4 * 4;
-  const size_t smem = (span + kKC * 2 * kNBP + kTM * kNBP) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      fbank_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((target + kTM - 1) / kTM, batch);
-  fbank_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(wav), static_cast<const int*>(lengths),
-      static_cast<const float*>(a_pad), static_cast<const float*>(banks_t),
-      static_cast<float*>(out), n, target, window, shift, k_pad, nbins, n_mels,
-      span);
-  return static_cast<int>(cudaGetLastError());
+  const int half = nfft / 2;
+  const int lanes = half < 32 ? half : 32;
+  const int log2_l = ilog2(lanes);
+  using Launch = int (*)(const void*, const void*, const void*, const void*, const void*,
+                         const void*, const void*, void*, int, int, int, int, int, int,
+                         int, int, double, cudaStream_t);
+  static const Launch by_regs[] = {launch<1>, launch<2>, launch<4>, launch<8>};
+  return by_regs[ilog2(half / lanes)](wav, lengths, window, twiddle, twiddle2, mel_runs,
+                                      mel_weights, out, batch, n, target, ws, shift, log2_l,
+                                      n_mels, remove_dc, preemph,
+                                      static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -1,16 +1,22 @@
 """Kaldi-compatible log-mel filterbank on torch tensors.
 
-The port of ``psla_tpu/frontend/fbank.py``. Two plain lowerings, both in
-float32 on whatever device the waveform lies on:
+The port of ``psla_tpu/frontend/fbank.py``. Plain lowerings on whatever
+device the waveform lies on, float32 unless named otherwise:
 
   * ``method='fft'``  -- per-frame DC removal, pre-emphasis and window in the
     golden order, then ``torch.fft.rfft``. Tightest parity with kaldi.
+  * ``method='fft64'`` -- the same, with the per-frame chain, the rFFT and
+    the power spectrum in float64 (from the float32 samples), the power
+    rounded to float32 before the mel banks. This is the order and the
+    precision of the CUDA kernel (``fbank_cuda.py``), and it is that
+    kernel's plain version. In float32 both other lowerings round relative
+    to a frame's energy, which after pre-emphasis costs up to ~4e-3 in the
+    log-mel of a frame's lowest bands.
   * ``method='gemm'`` -- the whole per-frame chain folded into ONE
     ``[window_size, 2*(nfft/2+1)]`` matrix (``frontend_matrix``), so a batch
     of frames is one matrix product:
         power = (F @ A_cos)^2 + (F @ A_sin)^2 ;  mel = power @ banks^T
-    This is the function the CUDA kernel (``fbank_cuda.py``) computes, and
-    it is that kernel's plain version.
+    The JAX package's TPU kernel computes this form.
 
 The constant matrices are built in float64 with numpy and cast to float32,
 exactly as the JAX package builds them, so they agree bit for bit.
@@ -87,6 +93,27 @@ def mel_banks(config: FbankConfig = FbankConfig()) -> np.ndarray:
         config.low_freq,
         config.high_freq,
     )
+
+
+@functools.lru_cache(maxsize=None)
+def mel_bank_runs(config: FbankConfig = FbankConfig()) -> tuple[np.ndarray, np.ndarray]:
+    """The banks as their non-zeros: each kaldi mel row is one run of bins.
+
+    Returns ``runs`` [num_mel_bins, 3] int32 (first bin, count, offset into
+    ``weights``) and ``weights`` [sum of counts] float32, the row values from
+    the first to the last non-zero bin. A row with no non-zero bin has
+    count 0, so its sum is 0, as in the dense product.
+    """
+    banks = mel_banks(config)
+    runs = np.zeros((banks.shape[0], 3), np.int32)
+    weights, offset = [], 0
+    for m, row in enumerate(banks):
+        nz = np.flatnonzero(row)
+        first, count = (int(nz[0]), int(nz[-1] - nz[0] + 1)) if nz.size else (0, 0)
+        runs[m] = first, count, offset
+        weights.append(row[first:first + count])
+        offset += count
+    return runs, np.concatenate(weights).astype(np.float32)
 
 
 @functools.lru_cache(maxsize=None)
@@ -179,6 +206,8 @@ def fbank(
     frames = frame_signal(wav, config)
     if method == "fft":
         power = _power_spectrum_fft(frames, config)
+    elif method == "fft64":
+        power = _power_spectrum_fft(frames.double(), config).float()
     elif method == "gemm":
         power = _power_spectrum_gemm(frames, config)
     else:

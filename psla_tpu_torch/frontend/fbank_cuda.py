@@ -3,15 +3,20 @@
 Replaces the TPU kernel ``psla_tpu/frontend/fbank_pallas.py::_fbank_kernel``
 (launched by ``fbank_pallas``). The kernel is ``psla_tpu_torch/csrc/fbank.cu``;
 its source note gives the bound on an H100 (bytes: ~6 us for the 16-clip
-serving micro-batch) and the design, whose dense products do ~30x the
-operations that bound counts.
+serving micro-batch) and the design: a real FFT in each warp and the mel
+banks' non-zeros, in place of the TPU kernel's two dense products.
 
 ``fbank_cuda`` is its wrapper and ``fbank_plain`` its plain version (the
-'gemm' lowering of ``fbank.py`` with the same frame-count rule and the same
-padding to ``target_frames``). A tensor on the CPU takes the plain version; a
-CUDA tensor launches the kernel or raises. The library is compiled by
-``nvcc`` from the source in this package at first use (``cuda_build``).
+'fft64' lowering of ``fbank.py``: the kernel's order of operations and its
+float64 spectrum, with the same frame-count rule and the same padding to
+``target_frames``). A tensor on the CPU takes the plain version; a CUDA
+tensor launches the kernel or raises. The library is compiled by ``nvcc``
+from the source in this package at first use (``cuda_build``).
 ``LAUNCHES`` counts the kernel's launches.
+
+``kernel_tables`` builds the kernel's constants: the window, the twiddle
+factors of the FFT (float64, computed on the host), and the banks as runs
+of bins with their packed weights.
 """
 
 from __future__ import annotations
@@ -25,22 +30,23 @@ import torch
 from psla_tpu_torch.cuda_build import CudaLibrary
 from psla_tpu_torch.frontend.fbank import (
     FbankConfig,
+    _window_np,
     fbank_batched,
-    frontend_matrix,
-    mel_banks,
+    mel_bank_runs,
     pad_or_truncate,
 )
 
 # Launches of the kernel in this process (the plain version does not count).
 LAUNCHES = 0
 
-# Tile constants shared with csrc/fbank.cu.
-_KC, _NBP, _KB, _MELP = 16, 288, 64, 128
+# Limits shared with csrc/fbank.cu: the FFT length, and the mel bins (4 a
+# lane).
+_MAX_NFFT, _MAX_MELS = 512, 128
 
 
 def _bind(lib: ctypes.CDLL):
     lib.psla_fbank_launch.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_double, ctypes.c_void_p]
     )
     lib.psla_fbank_launch.restype = ctypes.c_int
 
@@ -53,26 +59,50 @@ def build() -> ctypes.CDLL:
     return LIBRARY.load()
 
 
-def _round_up(x: int, m: int) -> int:
-    return (x + m - 1) // m * m
+def fft_layout(config: FbankConfig) -> tuple[int, int, int]:
+    """(half, lanes, regs): the real FFT of ``padded_window_size`` points is
+    a complex FFT of ``half`` = nfft/2 points, held by a warp as ``lanes``
+    lanes (min(32, half); lanes past them mirror these) of ``regs`` points
+    each; point n lies in lane n % lanes, register n // lanes."""
+    half = config.padded_window_size // 2
+    lanes = min(32, half)
+    return half, lanes, half // lanes
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel_constants(
-    config: FbankConfig, device: torch.device
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """A as [k_pad, 2, 288] (cos | sin, bins zero-padded) and banks^T as
-    [kb_pad, 128], zero-padded so the kernel's chunk loads need no guards."""
-    ws, nbins = config.window_size, config.num_spectrum_bins
-    a = frontend_matrix(config)
-    a_pad = np.zeros((_round_up(ws, _KC), 2, _NBP), np.float32)
-    a_pad[:ws, 0, :nbins] = a[:, :nbins]
-    a_pad[:ws, 1, :nbins] = a[:, nbins:]
-    banks = mel_banks(config)
-    banks_pad = np.zeros((_round_up(nbins, _KB), _MELP), np.float32)
-    banks_pad[:nbins, : banks.shape[0]] = banks.T
-    return (torch.from_numpy(a_pad).to(device),
-            torch.from_numpy(banks_pad).to(device))
+def kernel_tables(config: FbankConfig) -> dict[str, np.ndarray]:
+    """The kernel's constants.
+
+    * ``window`` [window_size] float32: the window of ``config.window_type``
+      (the plain version's).
+    * ``twiddle`` [half + 1, 2] float64: W^k = exp(-2 pi i k / nfft),
+      k = 0..half (cos, -sin): the split of the packed FFT into the real
+      FFT's bins, and the butterflies' factors (W_2h^j = W^(j * half / h)).
+    * ``twiddle2`` [regs, lanes, 2] float64: exp(-2 pi i a k2 / half), the
+      factor between the in-register and the across-lane steps, for lane a
+      and in-register bin k2.
+    * ``mel_runs`` [n_mels, 3] int32 and ``mel_weights``: the banks'
+      non-zeros (``fbank.mel_bank_runs``).
+    """
+    nfft = config.padded_window_size
+    if not 2 <= nfft <= _MAX_NFFT:
+        raise ValueError(f"fbank_cuda takes padded_window_size 2..{_MAX_NFFT}, got {nfft}")
+    half, lanes, regs = fft_layout(config)
+    ang = -2.0 * np.pi * np.arange(half + 1, dtype=np.float64) / nfft
+    ang2 = (-2.0 * np.pi / half) * np.outer(np.arange(regs), np.arange(lanes)).astype(np.float64)
+    runs, weights = mel_bank_runs(config)
+    return {
+        "window": _window_np(config).astype(np.float32),
+        "twiddle": np.stack([np.cos(ang), np.sin(ang)], -1),
+        "twiddle2": np.stack([np.cos(ang2), np.sin(ang2)], -1),
+        "mel_runs": runs,
+        "mel_weights": weights,
+    }
+
+
+@functools.lru_cache(maxsize=None)
+def _device_tables(config: FbankConfig, device: torch.device) -> dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(v).to(device) for k, v in kernel_tables(config).items()}
 
 
 def fbank_plain(
@@ -82,7 +112,7 @@ def fbank_plain(
     target_frames: int,
 ) -> torch.Tensor:
     """The kernel's plain version: [B, N] -> [B, target_frames, n_mels]."""
-    logmel, _ = fbank_batched(wav, lengths, config=config, method="gemm")
+    logmel, _ = fbank_batched(wav, lengths, config=config, method="fft64")
     return pad_or_truncate(logmel, target_frames)
 
 
@@ -115,25 +145,25 @@ def fbank_cuda(
         or not lengths.is_contiguous()
     ):
         raise ValueError("fbank_cuda: lengths must be contiguous int32 on wav's device")
-    nbins, n_mels = config.num_spectrum_bins, config.num_mel_bins
-    if nbins > _NBP or n_mels > _MELP:
-        raise ValueError(
-            f"fbank_cuda takes at most {_NBP} spectrum bins and {_MELP} mel "
-            f"bins, got {nbins} and {n_mels}"
-        )
+    n_mels = config.num_mel_bins
+    if n_mels > _MAX_MELS:
+        raise ValueError(f"fbank_cuda takes at most {_MAX_MELS} mel bins, got {n_mels}")
+    tables = _device_tables(config, wav.device)  # raises on an FFT length it cannot take
     b, n = wav.shape
     if b > 65535:
         raise ValueError(f"fbank_cuda takes at most 65535 clips, got {b}")
     out = torch.empty((b, target_frames, n_mels), dtype=torch.float32,
                       device=wav.device)
     lib = build()
-    a_pad, banks_pad = _kernel_constants(config, wav.device)
     err = lib.psla_fbank_launch(
         wav.data_ptr(),
         None if lengths is None else lengths.data_ptr(),
-        a_pad.data_ptr(), banks_pad.data_ptr(), out.data_ptr(),
+        *(tables[k].data_ptr() for k in ("window", "twiddle", "twiddle2",
+                                         "mel_runs", "mel_weights")),
+        out.data_ptr(),
         b, n, target_frames, config.window_size, config.window_shift,
-        a_pad.shape[0], nbins, banks_pad.shape[0], n_mels,
+        config.padded_window_size, n_mels, int(config.remove_dc_offset),
+        config.preemphasis_coefficient,
         torch.cuda.current_stream(wav.device).cuda_stream,
     )
     if err != 0:

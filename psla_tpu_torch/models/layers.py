@@ -79,8 +79,12 @@ class BatchNorm(nn.Module):
     Keys match ``nn.BatchNorm2d`` (weight, bias, running_mean, running_var)
     without ``num_batches_tracked``, which ``convert.normalize_state_dict``
     drops from reference checkpoints. Statistics and affine parameters stay
-    float32 whatever the activation dtype; they are folded into one scale
-    and shift in float32 before the cast.
+    float32 whatever the activation dtype. A float32 input takes one
+    ``addcmul`` with the folded scale and shift; any other dtype is computed
+    in float32 in flax's order, ``(x - mean) * mul + bias``, and rounded once
+    to the input's dtype, as ``flax.linen.normalization._normalize`` does
+    (rounding the folded scale and shift first loses the result where
+    ``x * mul`` and the shift cancel, as they do for large running means).
     """
 
     def __init__(self, num_features: int, eps: float = BN_EPS):
@@ -93,9 +97,11 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         mul = self.weight * torch.rsqrt(self.running_var + self.eps)
-        shift = self.bias - self.running_mean * mul
-        return torch.addcmul(shift.to(x.dtype)[:, None, None], x,
-                             mul.to(x.dtype)[:, None, None])
+        if x.dtype == torch.float32:
+            shift = self.bias - self.running_mean * mul
+            return torch.addcmul(shift[:, None, None], x, mul[:, None, None])
+        y = (x.float() - self.running_mean[:, None, None]) * mul[:, None, None]
+        return (y + self.bias[:, None, None]).to(x.dtype)
 
 
 def activation(x: torch.Tensor, act: str | None) -> torch.Tensor:

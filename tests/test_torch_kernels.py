@@ -7,8 +7,8 @@ the port is installed:
     python -m pytest --noconftest tests/test_torch_kernels.py -m cuda
 
 On the CPU the wrapper takes its plain version and never builds the
-kernel; the padded constants the kernel reads are checked here by
-emulating the kernel's arithmetic with them. Bar: 2e-4 abs in the log-mel
+kernel; the tables the kernel reads (twiddles, window, the banks' runs of
+bins) are checked here by emulating the kernel's arithmetic with them. Bar: 2e-4 abs in the log-mel
 domain (f32 summation order), the JAX package's own for its kernel. The
 MBConv kernels are held to their plain versions at the JAX package's bars
 for the fused blocks: 2e-6 (v1) and 3e-6 (v2) abs with rtol 1e-5 in
@@ -24,7 +24,13 @@ import torch
 
 from psla_tpu_torch import cuda_build, ops
 from psla_tpu_torch.frontend import fbank_cuda
-from psla_tpu_torch.frontend.fbank import FbankConfig
+from psla_tpu_torch.frontend.fbank import (
+    FbankConfig,
+    fbank_batched,
+    mel_bank_runs,
+    mel_banks,
+    pad_or_truncate,
+)
 from psla_tpu_torch.ops import fused_mbconv as v1
 from psla_tpu_torch.ops import mbconv_vmem as v2
 from tests.torch_mbconv_fixtures import nhwc_input, random_block
@@ -52,45 +58,112 @@ def ragged_batch():
     return wav, lengths
 
 
+def _bitrev(x: np.ndarray, bits: int) -> np.ndarray:
+    return np.array([int(format(int(v), f"0{bits}b")[::-1], 2) if bits else 0
+                     for v in np.atleast_1d(x)])
+
+
 def emulate_kernel(wav: np.ndarray, lengths: np.ndarray, config: FbankConfig,
                    target: int) -> np.ndarray:
-    """csrc/fbank.cu's arithmetic on its padded constants, in float64."""
-    a_pad, banks_pad = (t.numpy().astype(np.float64) for t in
-                        fbank_cuda._kernel_constants(config, torch.device("cpu")))
-    k_pad, _, nbp = a_pad.shape
+    """csrc/fbank.cu's arithmetic on the tables the wrapper builds, in
+    float64 as the kernel computes up to each bin's power: its lane/register
+    layout of the packed FFT, its butterflies and twiddle tables, its split
+    into the real FFT's bins and its runs of mel bins."""
+    tab = fbank_cuda.kernel_tables(config)
+    window = tab["window"].astype(np.float64)
+    tw = tab["twiddle"][:, 0].astype(np.float64) + 1j * tab["twiddle"][:, 1]
+    tw2 = tab["twiddle2"][..., 0].astype(np.float64) + 1j * tab["twiddle2"][..., 1]
+    runs, weights = tab["mel_runs"], tab["mel_weights"].astype(np.float64)
+    half, lanes, regs = fbank_cuda.fft_layout(config)
+    nfft, ws, shift = config.padded_window_size, config.window_size, config.window_shift
     b, n = wav.shape
-    shift = config.window_shift
     out = np.zeros((b, target, config.num_mel_bins))
     for i in range(b):
         n_valid = min(config.num_frames(min(int(lengths[i]), n)), target)
-        samples = np.zeros(max(n, target * shift + k_pad))  # zeros past N
-        samples[:n] = wav[i]
-        frames = np.stack([samples[t * shift: t * shift + k_pad]
-                           for t in range(n_valid)] or [np.zeros(k_pad)])
-        y = frames @ a_pad.reshape(k_pad, 2 * nbp)
-        power = y[:, :nbp] ** 2 + y[:, nbp:] ** 2
-        nbins = config.num_spectrum_bins  # the kernel's sum stops at nbins
-        mel = power[:, :nbins] @ banks_pad[:nbins]
-        logmel = np.log(np.maximum(mel[:, : config.num_mel_bins],
-                                   np.finfo(np.float32).eps))
-        out[i, :n_valid] = logmel[:n_valid]
+        if n_valid == 0:
+            continue
+        frames = np.stack([wav[i, t * shift: t * shift + ws] for t in range(n_valid)])
+        x = frames.astype(np.float64)
+        if config.remove_dc_offset:
+            x = x - x.mean(axis=1, keepdims=True)
+        prev = np.concatenate([x[:, :1], x[:, :-1]], axis=1)
+        x = (x - config.preemphasis_coefficient * prev) * window
+        padded = np.zeros((n_valid, nfft))
+        padded[:, :ws] = x
+        z = padded[:, 0::2] + 1j * padded[:, 1::2]  # [F, half]
+        v = z.reshape(n_valid, regs, lanes).copy()  # point a + lanes*r: v[:, r, a]
+        h = regs // 2
+        while h >= 1:  # in registers: DIF over r
+            for r in range(regs):
+                if r & h:
+                    continue
+                top, bot = v[:, r].copy(), v[:, r + h].copy()
+                v[:, r] = top + bot
+                v[:, r + h] = (top - bot) * tw[(r & (h - 1)) * (nfft // (2 * h))]
+            h //= 2
+        rbits, lbits = regs.bit_length() - 1, lanes.bit_length() - 1
+        k2 = _bitrev(np.arange(regs), rbits)
+        v = v * tw2[k2]  # register r holds bin k2 = bitrev(r)
+        a = np.arange(lanes)
+        h = lanes // 2
+        while h >= 1:  # across lanes: DIF by xor shuffles
+            other = v[:, :, a ^ h]
+            bottom = (a & h) != 0
+            v = np.where(bottom, (other - v) * tw[(a & (h - 1)) * (half // h)], v + other)
+            h //= 2
+        zf = np.zeros((n_valid, half), complex)
+        zf[:, k2[:, None] + regs * _bitrev(a, lbits)[None, :]] = v
+        np.testing.assert_allclose(zf, np.fft.fft(z, axis=1), atol=1e-9 * (1 + np.abs(z).sum()))
+        k = np.arange(half + 1)
+        zk, zc = zf[:, k & (half - 1)], np.conj(zf[:, (half - k) & (half - 1)])
+        spec = 0.5 * ((zk + zc) - 1j * tw * (zk - zc))
+        power = spec.real ** 2 + spec.imag ** 2
+        mel = np.zeros((n_valid, config.num_mel_bins))
+        for m, (first, count, offset) in enumerate(runs):
+            mel[:, m] = power[:, first:first + count] @ weights[offset:offset + count]
+        out[i, :n_valid] = np.log(np.maximum(mel, np.finfo(np.float32).eps))
     return out.astype(np.float32)
 
 
-@pytest.mark.parametrize("config", [
+KERNEL_CONFIGS = [
     CFG, FbankConfig(sample_frequency=8000.0, num_mel_bins=64),
-])
-def test_padded_constants_reproduce_the_plain_version(config):
-    """The kernel reads A as [k_pad, 2, 288] and banks^T as [kb_pad, 128],
-    zero-padded; with that layout its arithmetic gives the plain result."""
+    FbankConfig(sample_frequency=1000.0, num_mel_bins=10),  # half = 16 < 32 lanes
+]
+
+
+@pytest.mark.parametrize("config", KERNEL_CONFIGS)
+def test_kernel_tables_reproduce_the_plain_version(config):
+    """The kernel's FFT layout and tables, emulated in float64, give the
+    plain version's log-mel on the ragged batch."""
     wav, lengths = ragged_batch()
     ref = fbank_cuda.fbank_plain(torch.from_numpy(wav), torch.from_numpy(lengths),
                                  config, TARGET).numpy()
     got = emulate_kernel(wav, lengths, config, TARGET)
     np.testing.assert_allclose(got, ref, atol=ATOL, rtol=0)
-    a_pad, banks_pad = fbank_cuda._kernel_constants(config, torch.device("cpu"))
-    assert a_pad.shape[0] % 16 == 0 and banks_pad.shape[0] % 64 == 0
-    assert a_pad.shape[1:] == (2, 288) and banks_pad.shape[1] == 128
+    tab = fbank_cuda.kernel_tables(config)
+    half, lanes, regs = fbank_cuda.fft_layout(config)
+    assert tab["twiddle"].shape == (half + 1, 2) and tab["twiddle"].dtype == np.float64
+    assert tab["twiddle2"].shape == (regs, lanes, 2) and tab["twiddle2"].dtype == np.float64
+    assert tab["window"].shape == (config.window_size,)
+
+
+@pytest.mark.parametrize("config", KERNEL_CONFIGS)
+def test_sparse_bank_table_reproduces_mel_banks(config):
+    """The runs of bins and packed weights give mel_banks(config) exactly,
+    all-zero rows (count 0) included."""
+    banks = mel_banks(config)
+    runs, weights = mel_bank_runs(config)
+    dense = np.zeros_like(banks)
+    for m, (first, count, offset) in enumerate(runs):
+        dense[m, first:first + count] = weights[offset:offset + count]
+    np.testing.assert_array_equal(dense, banks)
+    assert runs.dtype == np.int32 and weights.dtype == np.float32
+    assert runs[:, 2].tolist() == np.concatenate([[0], np.cumsum(runs[:-1, 1])]).tolist()
+    assert weights.size == runs[:, 1].sum() == np.count_nonzero(banks)
+    empty = [m for m, row in enumerate(banks) if not row.any()]
+    assert all(runs[m, 1] == 0 for m in empty)
+    if config == CFG:  # kaldi's 128 mels from 20 Hz leave mel 3 without a bin
+        assert empty == [3]
 
 
 def test_wrapper_takes_plain_version_on_cpu(monkeypatch):
@@ -113,16 +186,20 @@ def test_wrapper_checks_shapes():
         fbank_cuda.fbank_cuda(wav[0], None, CFG, 4)
     with pytest.raises(ValueError, match="lengths"):
         fbank_cuda.fbank_cuda(wav, torch.zeros(3, dtype=torch.int32), CFG, 4)
+    with pytest.raises(ValueError, match="padded_window_size"):  # nfft 2048
+        fbank_cuda.kernel_tables(FbankConfig(sample_frequency=48000.0))
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("config", KERNEL_CONFIGS[:2])
 @pytest.mark.parametrize("precision", ["highest", "high", "default"])
-def test_kernel_matches_plain_version_on_card(precision):
-    """The hand kernel against its plain version on the card."""
+def test_kernel_matches_plain_version_on_card(precision, config):
+    """The hand kernel against its plain version ('fft') and the 'gemm'
+    lowering on the card."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
     assert not torch.backends.cuda.matmul.allow_tf32  # the plain version's bar
-    config = dataclasses.replace(CFG, precision=precision)
+    config = dataclasses.replace(config, precision=precision)
     wav, lengths = ragged_batch()
     wav_t = torch.from_numpy(wav).cuda()
     len_t = torch.from_numpy(lengths).cuda()
@@ -133,6 +210,9 @@ def test_kernel_matches_plain_version_on_card(precision):
     assert fbank_cuda.LAUNCHES == before + 2
     ref = fbank_cuda.fbank_plain(wav_t, len_t, config, TARGET)
     np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), atol=ATOL, rtol=0)
+    gemm, _ = fbank_batched(wav_t, len_t, config, method="gemm")
+    np.testing.assert_allclose(got.cpu().numpy(), pad_or_truncate(gemm, TARGET).cpu().numpy(),
+                               atol=ATOL, rtol=0)
     ref = fbank_cuda.fbank_plain(wav_t, None, config, TARGET)
     np.testing.assert_allclose(nolen.cpu().numpy(), ref.cpu().numpy(), atol=ATOL, rtol=0)
     with pytest.raises(ValueError, match="float32"):
@@ -140,6 +220,18 @@ def test_kernel_matches_plain_version_on_card(precision):
     with pytest.raises(ValueError, match="lengths"):
         fbank_cuda.fbank_cuda(wav_t, len_t.long(), config, TARGET)
     assert fbank_cuda.LAUNCHES == before + 2
+
+
+@pytest.mark.cuda
+def test_kernel_takes_a_half_warp_fft_on_card():
+    """nfft = 32: a 16-point packed FFT, lanes 16-31 mirroring 0-15."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    config = KERNEL_CONFIGS[2]
+    wav, lengths = (torch.from_numpy(x).cuda() for x in ragged_batch())
+    got = fbank_cuda.fbank_cuda(wav, lengths, config, TARGET)
+    ref = fbank_cuda.fbank_plain(wav, lengths, config, TARGET)
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), atol=ATOL, rtol=0)
 
 
 def test_build_dir_rule(monkeypatch, tmp_path):
