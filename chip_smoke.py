@@ -34,10 +34,12 @@ result line):
    (the 19 stride-1 blocks), float32, is the path whose launches are
    counted and checked against the module blocks. Then each kernel against
    its plain version for fast=False and fast=True (v1 at tiles 2048 and
-   256; each pass twice, for the same bits), and per-block times (CUDA
+   256; each kernel twice, for the same bits), and per-block times (CUDA
    events) of each kernel, its plain version and the module block beside
    the block's bound, with the grids of passes 1 and 2 (blocks of threads,
-   slices S, window pixels P).
+   slices S, window pixels P); v2's four phase kernels (A expand, B
+   depthwise, C squeeze-excite, D project) are also timed alone, per block
+   and summed over the sweep, for fast=False and fast=True.
 
 The line before the last is a JSON object with one record per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -49,6 +51,7 @@ import argparse
 import concurrent.futures
 import dataclasses
 import json
+import re
 import struct
 import subprocess
 import sys
@@ -132,17 +135,36 @@ LIBRARIES = {"fbank": fbank_cuda.LIBRARY, "mbconv_pass1": fused_mbconv.LIBRARY,
              "mbconv_pass2": fused_mbconv.PASS2_LIBRARY, "mbconv_v2": mbconv_vmem.LIBRARY}
 
 
+def kernel_report(log: str) -> list[tuple[str, int, int]]:
+    """(kernel, registers, spill-store bytes) of each entry in nvcc's
+    ``-Xptxas -v`` report, the kernel named by its mangled name without the
+    anonymous namespace."""
+    out, name, spills = [], None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}\d+", "", m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spills = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            out.append((name, int(m.group(1)), spills))
+            name, spills = None, 0
+    return out
+
+
 def build():
     """Builds every kernel library at once (one nvcc each, in parallel) and
-    prints each kernel's registers, shared memory and spills."""
+    prints each kernel's registers and spills."""
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(LIBRARIES)) as pool:
         list(pool.map(lambda lib: lib.load(), LIBRARIES.values()))
     print(f"build: {time.perf_counter() - t0:.2f} s for {', '.join(LIBRARIES)}")
     for name, lib in LIBRARIES.items():
-        for line in lib.log.splitlines():
-            if "Compiling entry" in line or "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+        for kernel, regs, spills in kernel_report(lib.log):
+            print(f"  {name}: {kernel}: {regs} registers, {spills} bytes spilled")
 
 
 # ---------------------------------------------------------------- phase 3
@@ -690,6 +712,8 @@ def mbconv_phase() -> list[dict]:
     errs = {name: 0.0 for name in launches}
     times = {key: 0.0 for key in ("v2", "v2_fast", "v2_plain", "p1", "p2", "p1_plain",
                                   "p2_plain", "module", "module_s1")}
+    # v2's phase kernels alone, summed over the sweep, fast=False and True
+    phase_ms = {(fast, ph): 0.0 for fast in (False, True) for ph in mbconv_vmem.PHASES}
     bounds = {name: 0.0 for name in launches}
     by_ops = {name: 0.0 for name in launches}  # seconds at the f32 peak
     by_bytes = {name: 0.0 for name in launches}  # seconds at the memory rate
@@ -698,7 +722,8 @@ def mbconv_phase() -> list[dict]:
     max_sums = 0.0
     print(f"{'blk':>3} {'k':>1} {'s':>1} {'in -> out (NHWC)':>34} {'Ce':>5} "
           f"{'v2 err':>9} {'v2 fast':>9} {'vs module':>9} {'v1 err':>9} {'max|ref|':>9} "
-          f"{'v2 ms':>8} {'plain':>8} {'p1 ms':>8} {'p2 ms':>8} {'v1 plain':>8} "
+          f"{'v2 ms':>8} {'A':>7} {'B':>7} {'C':>7} {'D':>7} "
+          f"{'plain':>8} {'p1 ms':>8} {'p2 ms':>8} {'v1 plain':>8} "
           f"{'module':>8} {'bound':>8} {'by':>10} {'p1 CTAs/S/P':>12} {'p2 CTAs/S/P':>12} "
           f"{'p1 bound':>8} {'p2 bound':>8}")
     for i, (blk, x, ref, f, (k, s)) in enumerate(zip(blocks, xs, refs, folded, geo)):
@@ -714,6 +739,9 @@ def mbconv_phase() -> list[dict]:
             yf = ops.fused_mbconv_eval_v2(x, f, k, s, fast=True)
             plain_f = mbconv_vmem.fused_mbconv_eval_v2_plain(x, f, k, s, fast=True)
             v2_fast = hold(f"block {i} v2 fast vs plain", yf, plain_f, FAST_TOL, FAST_TOL)
+            for fast, first in ((False, y), (True, yf)):  # no atomics: the same bits
+                check(torch.equal(first, ops.fused_mbconv_eval_v2(x, f, k, s, fast=fast)),
+                      f"block {i} v2 fast={fast}: two launches differ")
             errs["mbconv_v2"] = max(errs["mbconv_v2"], v2_err)
             v1_err = float("nan")
             if s == 1:
@@ -765,8 +793,14 @@ def mbconv_phase() -> list[dict]:
             with module_precision():
                 row["module"] = lambda: blk(nchw)
                 t = {key: cuda_ms(fn, reps=5, warmup=1) for key, fn in row.items()}
-        for key, v in t.items():
-            times[key] += v
+            for fast in (False, True):
+                _, launch = mbconv_vmem.phase_launcher(x, f, k, s, fast)
+                launch()  # every phase once: each later one reads its inputs
+                for ph, mask in mbconv_vmem.PHASES.items():
+                    t[(fast, ph)] = cuda_ms(lambda: launch(mask), reps=5, warmup=1)
+                    phase_ms[(fast, ph)] += t[(fast, ph)]
+        for key in row:
+            times[key] += t[key]
         if s == 1:
             times["module_s1"] += t["module"]
         for name in launches:
@@ -789,7 +823,9 @@ def mbconv_phase() -> list[dict]:
             grid2 = f"{g2.ctas}/{g2.slices}/{g2.p}"
         print(f"{i:>3} {k:>1} {s:>1} {shape:>34} {ce:>5} {v2_err:>9.2e} {v2_fast:>9.2e} "
               f"{v2_mod:>9.2e} {v1_err:>9.2e} {float(ref.abs().max()):>9.3e} "
-              f"{t['v2']:>8.4f} {t['v2_plain']:>8.4f} {t.get('p1', float('nan')):>8.4f} "
+              f"{t['v2']:>8.4f} "
+              + " ".join(f"{t[(False, ph)]:>7.4f}" for ph in mbconv_vmem.PHASES) +
+              f" {t['v2_plain']:>8.4f} {t.get('p1', float('nan')):>8.4f} "
               f"{t.get('p2', float('nan')):>8.4f} "
               f"{t.get('p1_plain', float('nan')) + t.get('p2_plain', float('nan')):>8.4f} "
               f"{t['module']:>8.4f} {bound_ms(work['mbconv_v2'])[0]:>8.4f} "
@@ -806,6 +842,13 @@ def mbconv_phase() -> list[dict]:
           f"bound {bounds['mbconv_v2']:.4f} ms at {PEAK_F32_FLOP_S / 1e12:.0f} TFLOP/s f32 "
           f"({bound_fast:.4f} ms with the products at the {PEAK_BF16_FLOP_S / 1e12:.0f} "
           f"TFLOP/s bf16 tensor-core peak); kernel at {bounds['mbconv_v2'] / times['v2']:.1%}")
+    for fast in (False, True):
+        parts = ", ".join(f"{ph} {phase_ms[(fast, ph)]:.4f}" for ph in mbconv_vmem.PHASES)
+        print(f"mbconv_v2 phase kernels alone, fast={fast}, summed over the {len(blocks)} "
+              f"blocks (ms): {parts}; together "
+              f"{sum(phase_ms[(fast, ph)] for ph in mbconv_vmem.PHASES):.4f} against the "
+              f"call's {times['v2_fast' if fast else 'v2']:.4f}; bound "
+              f"{bound_fast if fast else bounds['mbconv_v2']:.4f}")
     print(f"v1 over the {n_s1} stride-1 blocks, tile {V1_TILES[0]}: pass 1 "
           f"{times['p1']:.4f} ms (plain {times['p1_plain']:.4f}, bound "
           f"{bounds['mbconv_pass1']:.4f}), pass 2 {times['p2']:.4f} ms (plain "

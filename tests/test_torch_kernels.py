@@ -329,6 +329,40 @@ def test_mbconv_v2_kernel_matches_plain_version_on_card(shape, fast):
                                atol=5e-2, rtol=5e-2)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("fast", [False, True])
+def test_mbconv_v2_stride2_k5_ragged_n_tile_on_card(fast):
+    """B2's block 16 at 16 clips (k=5, stride 2, 8 x 66 -> 4 x 33, Cin 120,
+    Ce 720, Cout 208): the project product's last N tile runs past Cout.
+    The phase kernels against the plain version; at float32 a block that
+    sums 720 channels is held to 1e-5 of max |ref| where it misses the
+    elementwise bar only through its long sums (as chip_smoke.py holds
+    every B2 block)."""
+    _card()
+    kernel, stride, cin, cout, expand, h, w = 5, 2, 120, 208, 6, 8, 66
+    blk = random_block(kernel, stride, cin, cout, expand, seed=17).cuda()
+    folded = ops.fold_block(blk)
+    ce, cse = folded["wr"].shape
+    geo = v2.v2_geometry(16, h, w, cin, ce, cse, cout, kernel, stride,
+                         torch.cuda.get_device_properties(0).multi_processor_count,
+                         True, fast, False)
+    assert geo.project.tiles_n * geo.project.bn > cout  # a ragged N tile
+    x = nhwc_input(16, h, w, cin, seed=5).cuda()
+    before = v2.LAUNCHES
+    got = ops.fused_mbconv_eval_v2(x, folded, kernel, stride, fast)
+    again = ops.fused_mbconv_eval_v2(x, folded, kernel, stride, fast)
+    torch.cuda.synchronize()
+    assert v2.LAUNCHES == before + 2
+    torch.testing.assert_close(got, again, rtol=0, atol=0)  # no atomics
+    ref = v2.fused_mbconv_eval_v2_plain(x, folded, kernel, stride, fast).cpu().numpy()
+    got = got.cpu().numpy()
+    assert got.shape == ref.shape == (16, 4, 33, cout)
+    if fast or np.allclose(got, ref, **bars(fast, 3e-6)):
+        np.testing.assert_allclose(got, ref, **bars(fast, 3e-6))
+    else:
+        assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
 # (shape, clips): the stride-1 shapes above at 3 clips, two B2 shapes at 2
 # clips whose pass 2 splits the expanded channels (S > 1) over windows that
 # do not divide the map's width, and a k5 shape on a W=33 map whose pass 1
@@ -392,4 +426,10 @@ def test_mbconv_wrappers_refuse_bad_arguments_on_card():
         ops.fused_mbconv_eval(x, cpu_folded, 3)
     with pytest.raises(ValueError, match="gate"):
         v1.mbconv_pass2(x, folded, torch.zeros(2, 96), 3)
+    odd = ops.fold_block(random_block(3, 1, 12, 12, 6, seed=1).cuda())
+    with pytest.raises(ValueError, match="multiples of 8"):
+        ops.fused_mbconv_eval_v2(nhwc_input(2, 5, 7, 12, seed=1).cuda(), odd, 3)
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.fused_mbconv_eval_v2(torch.zeros(2 * 5 * 7 * 16 + 1).cuda()[1:].view(2, 5, 7, 16),
+                                 folded, 3)  # contiguous, 4 bytes past a boundary
     assert (v1.LAUNCHES_PASS1, v1.LAUNCHES_PASS2, v2.LAUNCHES) == launches
