@@ -577,6 +577,13 @@ def profile_dispatch(engine: InferenceEngine):
 # ---------------------------------------------------------------- phase 5
 
 PEAK_BF16_FLOP_S = 989e12  # H100 SXM tensor cores, dense (data sheet)
+PEAK_TF32_FLOP_S = 495e12
+# (products the card computes per product, their rate): the v1 passes on
+# the CUDA cores in float32; v2 on the tensor cores, float32 as 3xTF32
+# (three TF32 products each) and fast=True in bf16.
+PRODUCT_ROUTES = {"f32": (1, PEAK_F32_FLOP_S), "3xtf32": (3, PEAK_TF32_FLOP_S),
+                  "bf16": (1, PEAK_BF16_FLOP_S)}
+ROUTES = {"mbconv_v2": "3xtf32", "mbconv_pass1": "f32", "mbconv_pass2": "f32"}
 V2_ATOL, V1_ATOL, F32_RTOL = 3e-6, 2e-6, 1e-5  # the JAX package's f32 bars
 FAST_TOL = 5e-2  # fast=True (bfloat16 operands), the JAX package's bar
 # A full-width block that misses the f32 bar above only through its long
@@ -622,15 +629,19 @@ def block_work(b: int, h: int, w: int, cin: int, ce: int, cse: int, cout: int,
     }
 
 
-def bound_ms(work: dict, fast: bool = False) -> tuple[float, str]:
-    """Least time: the larger of operations over the peak and bytes over the
-    memory rate. fast=True puts the products at the bf16 tensor-core peak."""
-    if fast:
-        t_ops = (work["products"] / PEAK_BF16_FLOP_S
-                 + (work["flop"] - work["products"]) / PEAK_F32_FLOP_S)
-    else:
-        t_ops = work["flop"] / PEAK_F32_FLOP_S
-    t_bytes = work["bytes"] / PEAK_BYTES_S
+def ops_s(work: dict, route: str) -> float:
+    """Seconds of the block's operations at the card's peaks: the products
+    at the rate of the route that computes them (``PRODUCT_ROUTES``), the
+    rest at the float32 rate."""
+    per_product, peak = PRODUCT_ROUTES[route]
+    return (per_product * work["products"] / peak
+            + (work["flop"] - work["products"]) / PEAK_F32_FLOP_S)
+
+
+def bound_ms(work: dict, route: str) -> tuple[float, str]:
+    """Least time: the larger of operations over the peaks (``ops_s``) and
+    bytes over the memory rate."""
+    t_ops, t_bytes = ops_s(work, route), work["bytes"] / PEAK_BYTES_S
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -715,7 +726,7 @@ def mbconv_phase() -> list[dict]:
     # v2's phase kernels alone, summed over the sweep, fast=False and True
     phase_ms = {(fast, ph): 0.0 for fast in (False, True) for ph in mbconv_vmem.PHASES}
     bounds = {name: 0.0 for name in launches}
-    by_ops = {name: 0.0 for name in launches}  # seconds at the f32 peak
+    by_ops = {name: 0.0 for name in launches}  # seconds at the peaks (ops_s)
     by_bytes = {name: 0.0 for name in launches}  # seconds at the memory rate
     bound_fast = 0.0
     total = {"flop": 0, "bytes": 0, "io_bytes": 0}
@@ -805,10 +816,10 @@ def mbconv_phase() -> list[dict]:
             times["module_s1"] += t["module"]
         for name in launches:
             if name == "mbconv_v2" or s == 1:
-                bounds[name] += bound_ms(work[name])[0]
-                by_ops[name] += work[name]["flop"] / PEAK_F32_FLOP_S
+                bounds[name] += bound_ms(work[name], ROUTES[name])[0]
+                by_ops[name] += ops_s(work[name], ROUTES[name])
                 by_bytes[name] += work[name]["bytes"] / PEAK_BYTES_S
-        bound_fast += bound_ms(work["mbconv_v2"], fast=True)[0]
+        bound_fast += bound_ms(work["mbconv_v2"], "bf16")[0]
         total["flop"] += work["mbconv_v2"]["flop"]
         total["bytes"] += work["mbconv_v2"]["bytes"]
         total["io_bytes"] += 4 * (x.numel() + y.numel())
@@ -828,10 +839,10 @@ def mbconv_phase() -> list[dict]:
               f" {t['v2_plain']:>8.4f} {t.get('p1', float('nan')):>8.4f} "
               f"{t.get('p2', float('nan')):>8.4f} "
               f"{t.get('p1_plain', float('nan')) + t.get('p2_plain', float('nan')):>8.4f} "
-              f"{t['module']:>8.4f} {bound_ms(work['mbconv_v2'])[0]:>8.4f} "
-              f"{bound_ms(work['mbconv_v2'])[1]:>10} {grid1:>12} {grid2:>12} "
-              f"{bound_ms(work['mbconv_pass1'])[0] if s == 1 else float('nan'):>8.4f} "
-              f"{bound_ms(work['mbconv_pass2'])[0] if s == 1 else float('nan'):>8.4f}")
+              f"{t['module']:>8.4f} {bound_ms(work['mbconv_v2'], '3xtf32')[0]:>8.4f} "
+              f"{bound_ms(work['mbconv_v2'], '3xtf32')[1]:>10} {grid1:>12} {grid2:>12} "
+              f"{bound_ms(work['mbconv_pass1'], 'f32')[0] if s == 1 else float('nan'):>8.4f} "
+              f"{bound_ms(work['mbconv_pass2'], 'f32')[0] if s == 1 else float('nan'):>8.4f}")
 
     print(f"all {len(blocks)} blocks: {total['flop'] / 1e9:.2f} GFLOP, "
           f"{total['bytes'] / 1e6:.1f} MB (block inputs, outputs, weights; float32), of "
@@ -839,9 +850,11 @@ def mbconv_phase() -> list[dict]:
     print(f"mbconv_v2 over {len(blocks)} blocks: kernel {times['v2']:.4f} ms (fast=True "
           f"{times['v2_fast']:.4f} ms), plain {times['v2_plain']:.4f} ms, module block "
           f"forwards (several PyTorch calls each, cuDNN f32) {times['module']:.4f} ms; "
-          f"bound {bounds['mbconv_v2']:.4f} ms at {PEAK_F32_FLOP_S / 1e12:.0f} TFLOP/s f32 "
-          f"({bound_fast:.4f} ms with the products at the {PEAK_BF16_FLOP_S / 1e12:.0f} "
-          f"TFLOP/s bf16 tensor-core peak); kernel at {bounds['mbconv_v2'] / times['v2']:.1%}")
+          f"bound {bounds['mbconv_v2']:.4f} ms with the products as 3xTF32 at "
+          f"{PEAK_TF32_FLOP_S / 1e12:.0f} TFLOP/s, the rest at {PEAK_F32_FLOP_S / 1e12:.0f} "
+          f"(fast=True: {bound_fast:.4f} ms, the products in bf16 at "
+          f"{PEAK_BF16_FLOP_S / 1e12:.0f}); kernel at {bounds['mbconv_v2'] / times['v2']:.1%} "
+          f"(fast=True {bound_fast / times['v2_fast']:.1%})")
     for fast in (False, True):
         parts = ", ".join(f"{ph} {phase_ms[(fast, ph)]:.4f}" for ph in mbconv_vmem.PHASES)
         print(f"mbconv_v2 phase kernels alone, fast={fast}, summed over the {len(blocks)} "

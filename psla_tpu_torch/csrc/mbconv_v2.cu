@@ -48,14 +48,15 @@
 // The products (A and D), on the tensor cores because they are nearly all
 // of the operations: a block of 32*wm x 8*ni*wn output elements, each warp
 // 32 rows x 8*ni columns (the N tile fitted to the channel counts of 16,
-// 24, 48, ...), K in chunks of 32 of which up to four are in flight
-// (cp.async), so the next chunks' loads overlap the current chunk's
-// products; rows, columns and the K tail past the matrix are zero-filled in
-// shared memory. Where the tiles leave an SM fewer than 16 warps (B2's
-// small maps with Ce of 288-2112 in the project), K is cut into up to four
-// runs, one block each with two chunks in flight, so that more blocks fit
-// an SM; gemm_reduce_kernel adds the runs' sums in run order and applies
-// the epilogue. No float atomics: a run gives the same bits every time.
+// 24, 48, ...), K in chunks of 32, double-buffered (cp.async), so the next
+// chunk's loads overlap the current chunk's products; rows, columns and the
+// K tail past the matrix are zero-filled in shared memory. Where the tiles
+// leave an SM fewer than 16 warps (B2's small maps with Ce of 288-2112 in
+// the project), K is cut into up to four runs, one block each, so that more
+// blocks fit an SM; gemm_reduce_kernel adds the runs' sums in run order and
+// applies the epilogue. No float atomics: a run gives the same bits every
+// time. Rows are copied in 16-byte pieces, so the channel counts are
+// multiples of 8 (the wrapper pads others with zeros).
 //
 // fast = 1 follows the TPU kernel's rounding points: the operands of both
 // 1x1 products are rounded to bfloat16 and summed in float32
@@ -74,7 +75,11 @@
 
 #include <algorithm>
 #include <cstdint>
+#include <map>
+#include <mutex>
+#include <set>
 #include <type_traits>
+#include <utility>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -84,7 +89,6 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 constexpr int kBK = 32;        // depth of a staged product chunk (elements)
-constexpr int kMaxStages = 4;  // chunks of a product in flight, at most
 constexpr int kMI = 2;         // m16 tiles a warp holds
 constexpr int kMaxWarps = 8;
 constexpr int kDwCW = 32;      // channels of a depthwise block (a lane each)
@@ -167,8 +171,10 @@ __host__ __device__ constexpr int a_pitch(int a_bytes, bool fast) {
 __host__ __device__ constexpr int b_pitch(int bn, bool fast) {
   return pitch_words(bn, fast ? 4 : 8);
 }
-int gemm_smem(int bm, int bn, int k, int a_bytes, bool fast, bool gate, int stages) {
-  return stages * (bm * a_pitch(a_bytes, fast) + kBK * b_pitch(bn, fast) * 4) +
+// Chunks of a product in flight: two, one where K fits one chunk.
+__host__ __device__ constexpr int gemm_stages(int k) { return k <= kBK ? 1 : 2; }
+int gemm_smem(int bm, int bn, int k, int a_bytes, bool fast, bool gate) {
+  return gemm_stages(k) * (bm * a_pitch(a_bytes, fast) + kBK * b_pitch(bn, fast) * 4) +
          (gate ? 4 * ((k + kBK - 1) / kBK * kBK) : 0);
 }
 int dw_smem(int th, int tw, int k, int stride, int e_bytes) {
@@ -190,7 +196,7 @@ struct GemmParams {
   void* out;          // [segs * rows, n] of TO
   float* part;        // [splits, segs * rows, n] (splits > 1)
   size_t part_stride; // segs * rows * n
-  int rows, n, k, tiles_m, tiles_n, wm, wn, stages, splits;
+  int rows, n, k, tiles_m, tiles_n, wm, wn, splits;
 };
 
 template <class T>
@@ -212,7 +218,7 @@ __device__ __forceinline__ void store2(T* dst, size_t i, float v0, float v1, boo
 // swish). A of type TA (float or bf16) is read from shared memory as it was
 // copied, the project's gated as its fragments are read; kFast rounds A and
 // B to bfloat16 for m16n8k16, else each is split for 3xTF32 m16n8k8.
-// p.stages chunks are in flight (cp.async groups, one a chunk).
+// Double-buffered: chunk c+1 is copied (cp.async) while chunk c is summed.
 template <class TA, class TO, bool kFast, int NI, bool kProj>
 __global__ void __launch_bounds__(kMaxWarps * 32) gemm_kernel(const GemmParams p) {
   extern __shared__ float4 smem4[];
@@ -220,7 +226,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32) gemm_kernel(const GemmParams p
   constexpr int kAP = a_pitch(sizeof(TA), kFast);
   const int BM = 32 * p.wm, BN = 8 * NI * p.wn;
   const int bp = b_pitch(BN, kFast);
-  const int nk = (p.k + kBK - 1) / kBK, stages = p.stages;
+  const int nk = (p.k + kBK - 1) / kBK, stages = gemm_stages(p.k);
   // K split: this block's chunks [c_lo, c_hi) of run `split`
   const int tiles = gridDim.x / p.splits, split = blockIdx.x / tiles;
   const int cps = (nk + p.splits - 1) / p.splits;
@@ -266,13 +272,9 @@ __global__ void __launch_bounds__(kMaxWarps * 32) gemm_kernel(const GemmParams p
     }
   };
 
-  // chunks 0 .. stages-2 in flight (chunk 0 alone with one stage); one
-  // commit group a chunk, empty past K
-  const int ahead = max(stages - 1, 1);
-  for (int i = 0; i < ahead; ++i) {
-    if (c_lo + i < c_hi) stage(c_lo + i, i);
-    cp_async_commit();
-  }
+  // the run's first chunk in flight; one commit group a chunk
+  if (c_lo < c_hi) stage(c_lo, 0);
+  cp_async_commit();
   if constexpr (kProj) {  // the clip's gate row, rounded where the TPU kernel rounds it
     const float* gr = p.gate + static_cast<size_t>(seg) * p.k;
     for (int i = tid; i < nk * kBK; i += nthreads)
@@ -306,16 +308,13 @@ __global__ void __launch_bounds__(kMaxWarps * 32) gemm_kernel(const GemmParams p
 
   float acc[kMI][NI][4] = {};
   for (int c = c_lo; c < c_hi; ++c) {
-    const int ci = c - c_lo;
-    // chunk c is in: ahead - 1 younger groups may still be in flight
-    if (ahead >= 3) cp_async_wait<2>();
-    else if (ahead == 2) cp_async_wait<1>();
-    else cp_async_wait<0>();
-    __syncthreads();  // ... for every thread (and the gate row); chunk c-1 is consumed
-    if (stages > 1 && c + stages - 1 < c_hi) stage(c + stages - 1, (ci + stages - 1) % stages);
+    const int buf = (c - c_lo) & 1;  // buffer 0 alone with one stage (one chunk)
+    cp_async_wait<0>();  // chunk c is in ...
+    __syncthreads();     // ... for every thread (and the gate row); chunk c-1 is consumed
+    if (c + 1 < c_hi) stage(c + 1, buf ^ 1);  // into chunk c-1's buffer
     cp_async_commit();
-    const char* const as = As + (ci % stages) * BM * kAP;
-    const float* const bs = Bs + (ci % stages) * kBK * bp;
+    const char* const as = As + buf * BM * kAP;
+    const float* const bs = Bs + buf * kBK * bp;
     const int k0 = c * kBK;
     // B's fragments of the k-step for all NI n8 tiles, then A's a m16 tile
     // at a time (fewer fragments live at once).
@@ -633,40 +632,56 @@ int same_out(int n, int k, int s, int* lo) {
 
 bool aligned16(const void* ptr) { return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0; }
 
-int max_smem() {
-  int dev = 0, v = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
-    return 0;
-  return v;
-}
+constexpr int kInvalid = static_cast<int>(cudaErrorInvalidValue);
 
+// The opt-in shared memory limit of each device, and the kernels whose
+// dynamic shared memory has been raised to it there: each read or set once.
+std::mutex g_smem_mu;
+std::map<int, int> g_smem_limit;
+std::set<std::pair<int, const void*>> g_smem_raised;
+
+// Launches kern with smem bytes of dynamic shared memory; kInvalid if smem
+// is above the device's opt-in limit.
 template <class K>
 int launch_kernel(K kern, unsigned grid_x, unsigned grid_y, int threads, int smem,
                   cudaStream_t st, const void* params) {
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const void* const fn = reinterpret_cast<const void*>(kern);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
+  {
+    std::lock_guard<std::mutex> lock(g_smem_mu);
+    auto limit = g_smem_limit.find(dev);
+    if (limit == g_smem_limit.end()) {
+      int v = 0;
+      err = cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      limit = g_smem_limit.emplace(dev, v).first;
+    }
+    if (smem > limit->second) return kInvalid;
+    if (!g_smem_raised.count({dev, fn})) {
+      err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, limit->second);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      g_smem_raised.insert({dev, fn});
+    }
+  }
   void* args[] = {const_cast<void*>(params)};
-  err = cudaLaunchKernel(reinterpret_cast<const void*>(kern), dim3(grid_x, grid_y), dim3(threads),
-                         args, smem, st);
+  err = cudaLaunchKernel(fn, dim3(grid_x, grid_y), dim3(threads), args, smem, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-constexpr int kInvalid = static_cast<int>(cudaErrorInvalidValue);
-
-// geo: wm, wn, ni, tiles_m, tiles_n, splits, stages, smem of one product;
+// geo: wm, wn, ni, tiles_m, tiles_n, splits, smem of one product;
 // part: scratch for the runs' sums of a K split.
 template <class TA, class TO, bool kFast, bool kProj>
 int run_gemm(GemmParams p, int segs, const int* geo, int a_bytes, float* part,
              cudaStream_t st) {
-  const int wm = geo[0], wn = geo[1], ni = geo[2], smem = geo[7];
+  const int wm = geo[0], wn = geo[1], ni = geo[2], smem = geo[6];
   p.wm = wm;
   p.wn = wn;
   p.tiles_m = geo[3];
   p.tiles_n = geo[4];
   p.splits = geo[5];
-  p.stages = geo[6];
   p.part = part;
   p.part_stride = static_cast<size_t>(segs) * p.rows * p.n;
   const int nk = (p.k + kBK - 1) / kBK;
@@ -676,8 +691,7 @@ int run_gemm(GemmParams p, int segs, const int* geo, int a_bytes, float* part,
       static_cast<long long>(p.tiles_m) * bm < p.rows || (p.tiles_m - 1) * bm >= p.rows ||
       static_cast<long long>(p.tiles_n) * bn < p.n || (p.tiles_n - 1) * bn >= p.n ||
       p.splits < 1 || (p.splits - 1) * cps >= nk || (p.splits > 1 && part == nullptr) ||
-      p.stages < 1 || p.stages > kMaxStages || p.stages > cps || (p.stages == 1 && cps > 1) ||
-      smem != gemm_smem(bm, bn, p.k, a_bytes, kFast, kProj, p.stages) || smem > max_smem())
+      smem != gemm_smem(bm, bn, p.k, a_bytes, kFast, kProj))
     return kInvalid;
   const long long ctas = static_cast<long long>(segs) * p.tiles_m * p.tiles_n * p.splits;
   if (ctas > 2147483647LL || p.part_stride > 2147483647ULL * 256) return kInvalid;
@@ -694,7 +708,7 @@ template <class TE, class TD>
 int run_depthwise(DwParams p, int k, int batch, int slices, int smem, cudaStream_t st) {
   if (p.th < 1 || p.tw < 1 || p.th * p.tw > kDwMaxP ||
       p.nwin != ((p.ho + p.th - 1) / p.th) * ((p.wo + p.tw - 1) / p.tw) ||
-      smem != dw_smem(p.th, p.tw, k, p.stride, sizeof(TE)) || smem > max_smem() ||
+      smem != dw_smem(p.th, p.tw, k, p.stride, sizeof(TE)) ||
       slices > 65535 || static_cast<long long>(batch) * p.nwin > 2147483647LL)
     return kInvalid;
   p.nwx = (p.wo + p.tw - 1) / p.tw;
@@ -709,7 +723,7 @@ int run(const void* const* ptrs, const int* dims, const int* geo, int phases, cu
   constexpr bool kFast = std::is_same<TA, bf16>::value;
   const int batch = dims[0], h = dims[1], w = dims[2], cin = dims[3], ce = dims[4];
   const int cse = dims[5], cout = dims[6], k = dims[7], stride = dims[8];
-  const int has_expand = dims[10];
+  const int has_expand = dims[10], residual = dims[12];
   const void* x = ptrs[0];
   const float* f[11];
   for (int i = 1; i <= 10; ++i) f[i] = static_cast<const float*>(ptrs[i]);
@@ -721,8 +735,9 @@ int run(const void* const* ptrs, const int* dims, const int* geo, int phases, cu
   float* part_k = static_cast<float*>(const_cast<void*>(ptrs[16]));
   int lo_h = 0, lo_w = 0;
   const int ho = same_out(h, k, stride, &lo_h), wo = same_out(w, k, stride, &lo_w);
-  const int nwin = geo[23];
+  const int nwin = geo[21];
   if ((has_expand && (!f[1] || !f[2] || !e)) || (!has_expand && cin != ce) || !d ||
+      (residual && (stride != 1 || cin != cout)) ||
       !partial || !gate || !out || nwin < 1)
     return kInvalid;
   int err = 0;
@@ -754,13 +769,13 @@ int run(const void* const* ptrs, const int* dims, const int* geo, int phases, cu
     p.stride = stride;
     p.lo_h = lo_h;
     p.lo_w = lo_w;
-    p.th = geo[8];
-    p.tw = geo[9];
+    p.th = geo[7];
+    p.tw = geo[8];
     p.nwin = nwin;
     const int slices = (ce + kDwCW - 1) / kDwCW;
     err = has_expand || std::is_same<TX, TA>::value
-              ? run_depthwise<TA, TA>(p, k, batch, slices, geo[10], st)
-              : run_depthwise<TX, TA>(p, k, batch, slices, geo[10], st);
+              ? run_depthwise<TA, TA>(p, k, batch, slices, geo[9], st)
+              : run_depthwise<TX, TA>(p, k, batch, slices, geo[9], st);
     if (err) return err;
   }
   if (phases & 4) {  // C. the gate, one block a clip
@@ -774,12 +789,12 @@ int run(const void* const* ptrs, const int* dims, const int* geo, int phases, cu
     p.nwin = nwin;
     p.ce = ce;
     p.cse = cse;
-    p.wg = geo[11];
-    p.groups = geo[12];
+    p.wg = geo[10];
+    p.groups = geo[11];
     p.pixels = ho * wo;
-    const int threads = geo[13], smem = geo[14];
+    const int threads = geo[12], smem = geo[13];
     if (threads != kSeThreads || p.wg < 1 || p.wg > nwin || p.groups < 1 ||
-        smem != se_smem(ce, cse, p.wg, p.groups) || smem > max_smem())
+        smem != se_smem(ce, cse, p.wg, p.groups))
       return kInvalid;
     err = launch_kernel(se_kernel, batch, 1, threads, smem, st, &p);
     if (err) return err;
@@ -790,12 +805,12 @@ int run(const void* const* ptrs, const int* dims, const int* geo, int phases, cu
     p.b = f[9];
     p.bias = f[10];
     p.gate = gate;
-    p.res = stride == 1 && cin == cout ? x : nullptr;
+    p.res = residual ? x : nullptr;
     p.out = out;
     p.rows = ho * wo;
     p.n = cout;
     p.k = ce;
-    err = run_gemm<TA, TX, kFast, true>(p, batch, geo + 15, sizeof(TA), part_k, st);
+    err = run_gemm<TA, TX, kFast, true>(p, batch, geo + 14, sizeof(TA), part_k, st);
   }
   return err;
 }
@@ -805,23 +820,25 @@ int run(const void* const* ptrs, const int* dims, const int* geo, int phases, cu
 extern "C" {
 
 // One block. ptrs: x, w1, b1, wd, bd, wr, br, we, be, wp, bp, out, e, d,
-// partial, gate (w1, b1 and e null without expand). out [B, Ho, Wo, Cout] in
-// x's type (float32, or bfloat16 when x_bf16); e [B, H, W, Ce] and d
-// [B, Ho, Wo, Ce] scratch in the activation type (bfloat16 when fast, else
-// float32); partial [B, windows, Ce] and gate [B, Ce] float32 scratch.
-// dims: batch, h, w, cin, ce, cse, cout, k, stride, fast, has_expand,
-// x_bf16. geo (psla_tpu_torch.ops.mbconv_vmem.v2_geometry): the expand's
-// wm, wn, ni, tiles_m, tiles_n, stages, smem; the depthwise th, tw, smem; the
-// squeeze-excite's window groups, channel groups, threads, smem; the
-// project's seven; windows a clip. phases: a mask of A (1), B (2), C (4) and
-// D (8), launched in that order on the stream. Returns the CUDA error of
-// the launches; cudaErrorInvalidValue for arguments or a geometry the
+// partial, gate, part (w1, b1 and e null without expand; part null unless
+// a product splits K). out [B, Ho, Wo, Cout] in x's type (float32, or
+// bfloat16 when x_bf16); e [B, H, W, Ce] and d [B, Ho, Wo, Ce] scratch in
+// the activation type (bfloat16 when fast, else float32); partial
+// [B, windows, Ce], gate [B, Ce] and part [splits, rows, n] float32
+// scratch. dims: batch, h, w, cin, ce, cse, cout, k, stride, fast,
+// has_expand, x_bf16, residual (add x to the output: stride 1, Cin ==
+// Cout). geo (psla_tpu_torch.ops.mbconv_vmem.v2_geometry): the expand's
+// wm, wn, ni, tiles_m, tiles_n, splits, smem; the depthwise th, tw, smem;
+// the squeeze-excite's window groups, channel groups, threads, smem; the
+// project's seven; windows a clip. phases: a mask of A (1), B (2), C (4)
+// and D (8), launched in that order on the stream. Returns the CUDA error
+// of the launches; cudaErrorInvalidValue for arguments or a geometry the
 // kernels cannot run.
 int psla_mbconv_v2_launch(const void* const* ptrs, const int* dims, const int* geo,
                           int phases, void* stream) {
   const int k = dims[7], stride = dims[8];
-  if ((k != 3 && k != 5) || (stride != 1 && stride != 2) || dims[0] <= 0 || dims[1] <= 0 || dims[2] <= 0 || dims[3] <= 0 || dims[4] <= 0 ||
-      dims[5] <= 0 || dims[6] <= 0 || !ptrs[0])
+  if ((k != 3 && k != 5) || (stride != 1 && stride != 2) || dims[0] <= 0 || dims[1] <= 0 ||
+      dims[2] <= 0 || dims[3] <= 0 || dims[4] <= 0 || dims[5] <= 0 || dims[6] <= 0 || !ptrs[0])
     return kInvalid;
   // 16-byte copies of rows: channel counts in multiples of 8, aligned arrays
   if (dims[3] % 8 || dims[4] % 8 || dims[6] % 8) return kInvalid;

@@ -25,6 +25,9 @@ plain version needs it.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernels
 or raises. ``LAUNCHES`` counts the calls that launched them (one a block).
+The kernels copy rows in 16-byte pieces: the wrapper pads channel counts
+that are not multiples of 8 with zeros (``pad_channels``) and drops the
+padded outputs.
 
 ``fast=True``: the 1x1 products take bfloat16 operands and sum in float32
 (``mma.sync`` m16n8k16); the expanded activation, each depthwise tap's
@@ -45,7 +48,14 @@ import torch
 import torch.nn.functional as F
 
 from psla_tpu_torch.cuda_build import CudaLibrary
-from psla_tpu_torch.ops.fused_mbconv import SMEM_LIMIT, _sm_count, check_args, dot, se_gate
+from psla_tpu_torch.ops.fused_mbconv import (
+    KEYS,
+    SMEM_LIMIT,
+    _sm_count,
+    check_args,
+    dot,
+    se_gate,
+)
 
 # Launches of the kernels in this process, one per block call (the plain
 # version does not count).
@@ -81,8 +91,7 @@ def same_pad(n: int, k: int, s: int) -> tuple[int, int, int]:
 # ------------------------------------------------------------------ geometry
 
 BK = 32              # depth of one staged chunk of a product (elements)
-GEMM_STAGES = 4      # chunks of a product in flight, at most
-GEMM_SMEM_TARGET = SMEM_LIMIT // 3  # fewer stages rather than fewer than 3 blocks an SM
+CHANNEL_ALIGN = 8    # the kernels take channel counts in multiples of this
 GEMM_NI = (1, 2, 4)  # n8 tiles a warp holds (kernel templates)
 GEMM_MAX_SPLITS = 4  # runs of K, added in order by a second kernel
 GEMM_SPLIT_WARPS = 16  # K is split while the grid holds fewer warps an SM
@@ -123,24 +132,20 @@ def b_pitch(bn: int, fast: bool) -> int:
     return _pitch(bn, 4 if fast else 8)
 
 
-def gemm_stages(bm: int, bn: int, k: int, a_bytes: int, fast: bool, gate: bool) -> int:
-    """Chunks in flight: GEMM_STAGES, no more than K has, and down to two
-    while a block's shared memory is above GEMM_SMEM_TARGET."""
-    stages = min(GEMM_STAGES, -(-k // BK))
-    while stages > 2 and gemm_smem(bm, bn, k, a_bytes, fast, gate, stages) > GEMM_SMEM_TARGET:
-        stages -= 1
-    return stages
+def gemm_stages(k: int) -> int:
+    """Chunks of a product in flight: two (double-buffered), one where K
+    fits one chunk."""
+    return 1 if k <= BK else 2
 
 
-def gemm_smem(bm: int, bn: int, k: int, a_bytes: int, fast: bool, gate: bool,
-              stages: int) -> int:
+def gemm_smem(bm: int, bn: int, k: int, a_bytes: int, fast: bool, gate: bool) -> int:
     """Shared memory of one product block, bytes (mirrors gemm_smem in
     csrc/mbconv_v2.cu): an A and a B chunk for each chunk in flight, and
     the clip's gate row (project only)."""
     a = bm * a_pitch_bytes(a_bytes, fast)
     b = BK * b_pitch(bn, fast) * 4
     g = 4 * _round_up(k, BK) if gate else 0
-    return stages * (a + b) + g
+    return gemm_stages(k) * (a + b) + g
 
 
 @dataclasses.dataclass(frozen=True)
@@ -163,7 +168,6 @@ class GemmGeometry:
     wn: int
     ni: int
     splits: int
-    stages: int
     smem: int
 
     @property
@@ -208,8 +212,7 @@ def gemm_tiles(segs: int, rows: int, n: int, k: int, sm_count: int, *, a_bytes: 
                 bm, bn = 32 * wm, 8 * ni * wn
                 if bn > 8 * ni * max(1, -(-n // (8 * ni))):  # no all-padding warps
                     continue
-                stages = gemm_stages(bm, bn, k, a_bytes, fast, gate)
-                smem = gemm_smem(bm, bn, k, a_bytes, fast, gate, stages)
+                smem = gemm_smem(bm, bn, k, a_bytes, fast, gate)
                 if smem > SMEM_LIMIT:
                     continue
                 tm, tn = segs * -(-rows // bm), -(-n // bn)
@@ -218,31 +221,25 @@ def gemm_tiles(segs: int, rows: int, n: int, k: int, sm_count: int, *, a_bytes: 
                 cost = macs / 64 + reads
                 cands.append((tm * tn, cost, -(wm * wn), GemmGeometry(
                     segs=segs, rows=rows, n=n, k=k, wm=wm, wn=wn, ni=ni, splits=1,
-                    stages=stages, smem=smem)))
+                    smem=smem)))
     most = max(c[0] for c in cands)
     for floor in (2 * sm_count, sm_count, most):
         ok = [c for c in cands if c[0] >= floor]
         if ok:
-            return split_k(min(ok, key=lambda c: (c[1], c[2]))[3], sm_count, a_bytes, fast,
-                           gate)
+            return split_k(min(ok, key=lambda c: (c[1], c[2]))[3], sm_count)
     raise AssertionError("unreachable")
 
 
-def split_k(g: GemmGeometry, sm_count: int, a_bytes: int, fast: bool,
-            gate: bool) -> GemmGeometry:
+def split_k(g: GemmGeometry, sm_count: int) -> GemmGeometry:
     """Splits K into runs while the grid holds fewer than GEMM_SPLIT_WARPS
     warps an SM (a long K on few rows), up to GEMM_MAX_SPLITS runs of at
-    least GEMM_SPLIT_CHUNKS chunks; a split product keeps two chunks in
-    flight, so that more of its blocks fit on an SM."""
+    least GEMM_SPLIT_CHUNKS chunks."""
     nk = -(-g.k // BK)
     splits = 1
     while (splits < GEMM_MAX_SPLITS and nk // (splits + 1) >= GEMM_SPLIT_CHUNKS
            and g.ctas * splits * g.wm * g.wn < GEMM_SPLIT_WARPS * sm_count):
         splits += 1
-    if splits == 1:
-        return g
-    return dataclasses.replace(g, splits=splits, stages=2,
-                               smem=gemm_smem(g.bm, g.bn, g.k, a_bytes, fast, gate, 2))
+    return dataclasses.replace(g, splits=splits)
 
 
 def dw_smem(th: int, tw: int, k: int, stride: int, e_bytes: int) -> int:
@@ -381,8 +378,73 @@ def fused_mbconv_eval_v2_plain(x: torch.Tensor, folded: dict, kernel: int,
 
 def _gemm_ints(g: GemmGeometry | None) -> list[int]:
     if g is None:
-        return [0] * 8
-    return [g.wm, g.wn, g.ni, g.tiles_m, g.tiles_n, g.splits, g.stages, g.smem]
+        return [0] * 7
+    return [g.wm, g.wn, g.ni, g.tiles_m, g.tiles_n, g.splits, g.smem]
+
+
+def pad_channels(x: torch.Tensor, folded: dict) -> tuple[torch.Tensor, dict]:
+    """x and the folded weights as the kernels take them: Cin, Ce and Cout
+    padded with zeros up to multiples of CHANNEL_ALIGN (the kernels copy
+    rows in 16-byte pieces), and every tensor on a 16-byte boundary. A
+    padded expanded channel is 0 after the expand and after the depthwise
+    (swish(0) = 0) and meets zero rows of wr and wp, so the first Cout
+    output channels do not change; the caller drops the rest. EfficientNet's
+    channel counts are multiples of 8: its tensors pass through as they are."""
+    cin, ce, cout = x.shape[-1], folded["wr"].shape[0], folded["wp"].shape[1]
+    pi, pe, po = (-c % CHANNEL_ALIGN for c in (cin, ce, cout))
+    if not (pi or pe or po) and all(t.data_ptr() % 16 == 0 for t in (x, *folded.values())):
+        return x, folded
+    # padding at the end of each dimension, first to last
+    amounts = {"w1": (pi, pe), "b1": (pe,), "wd": (0, pe), "bd": (pe,), "wr": (pe, 0),
+               "br": (0,), "we": (0, pe), "be": (pe,), "wp": (pe, po), "bp": (po,)}
+
+    def padded(t: torch.Tensor, amount: tuple[int, ...]) -> torch.Tensor:
+        if any(amount):
+            t = F.pad(t, [p for a in reversed(amount) for p in (0, a)])
+        return t if t.data_ptr() % 16 == 0 else t.clone()
+
+    return (padded(x, (0, 0, 0, pi)),
+            {key: padded(t, amounts[key]) for key, t in folded.items()})
+
+
+@dataclasses.dataclass(frozen=True)
+class _Plan:
+    """What the shape of a block call fixes: the C side's dims and geometry
+    arguments, the output's shape, and the scratch's size and layout (the
+    byte offsets of e, d, the window sums, the gate and the K runs' sums,
+    None where a block has none)."""
+
+    dims: ctypes.Array
+    geom: ctypes.Array
+    out_shape: tuple[int, int, int, int]
+    scratch_bytes: int
+    offsets: tuple[int | None, ...]
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(b: int, h: int, w: int, cin: int, ce: int, cse: int, cout: int, kernel: int,
+          stride: int, sm_count: int, has_expand: bool, fast: bool, x_bf16: bool,
+          residual: bool) -> _Plan:
+    ho, _, _ = same_pad(h, kernel, stride)
+    wo, _, _ = same_pad(w, kernel, stride)
+    geo = v2_geometry(b, h, w, cin, ce, cse, cout, kernel, stride, sm_count, has_expand, fast,
+                      x_bf16)
+    act_bytes = 2 if fast else 4
+    runs = [g.splits * g.segs * g.rows * g.n for g in (geo.expand, geo.project)
+            if g is not None and g.splits > 1]
+    sizes = (act_bytes * b * h * w * ce if has_expand else 0, act_bytes * b * ho * wo * ce,
+             4 * b * geo.windows * ce, 4 * b * ce, 4 * max(runs, default=0))
+    offsets, end = [], 0
+    for size in sizes:  # each on a 256-byte boundary
+        offsets.append(end if size else None)
+        end += _round_up(size, 256)
+    dims = (ctypes.c_int * 13)(b, h, w, cin, ce, cse, cout, kernel, stride, int(fast),
+                               int(has_expand), int(x_bf16), int(residual))
+    geom = (ctypes.c_int * 22)(
+        *_gemm_ints(geo.expand), geo.th, geo.tw, geo.dw_smem, geo.se_wg, geo.se_groups,
+        SE_THREADS, geo.se_smem, *_gemm_ints(geo.project), geo.nwy * geo.nwx)
+    return _Plan(dims=dims, geom=geom, out_shape=(b, ho, wo, cout), scratch_bytes=end,
+                 offsets=tuple(offsets))
 
 
 def _runner(x: torch.Tensor, folded: dict, kernel: int, stride: int, fast: bool):
@@ -390,47 +452,25 @@ def _runner(x: torch.Tensor, folded: dict, kernel: int, stride: int, fast: bool)
     (out, launch), where ``launch(phases)`` launches the phase kernels in
     the mask (``PHASES``) on the current stream and raises on an error."""
     b, h, w, cin = x.shape
-    has_expand = "w1" in folded
-    ce, cse = folded["wr"].shape
     cout = folded["wp"].shape[1]
-    # the kernels copy rows in 16-byte pieces (EfficientNet's channel counts
-    # are multiples of 8)
-    if cin % 8 or ce % 8 or cout % 8:
-        raise ValueError(f"fused_mbconv_eval_v2: the kernels take channel counts in "
-                         f"multiples of 8, got Cin {cin}, Ce {ce}, Cout {cout}")
-    if any(t.data_ptr() % 16 for t in (x, *folded.values())):
-        raise ValueError("fused_mbconv_eval_v2: x and the folded weights must start on "
-                         "16-byte boundaries")
-    ho, _, _ = same_pad(h, kernel, stride)
-    wo, _, _ = same_pad(w, kernel, stride)
-    x_bf16 = x.dtype == torch.bfloat16
-    geo = v2_geometry(b, h, w, cin, ce, cse, cout, kernel, stride, _sm_count(x.device),
-                      has_expand, fast, x_bf16)
-    act = torch.bfloat16 if fast else torch.float32
+    residual = stride == 1 and cin == cout
+    x, folded = pad_channels(x, folded)
+    ce, cse = folded["wr"].shape
     dev = x.device
-    # Scratch freed on return is handed out again only in stream order (the
-    # caching allocator), so after these launches have read and written it.
-    out = torch.empty((b, ho, wo, cout), dtype=x.dtype, device=dev)
-    e = torch.empty((b, h, w, ce), dtype=act, device=dev) if has_expand else None
-    d = torch.empty((b, ho, wo, ce), dtype=act, device=dev)
-    partial = torch.empty((b, geo.windows, ce), dtype=torch.float32, device=dev)
-    gate = torch.empty((b, ce), dtype=torch.float32, device=dev)
-    runs = [g.splits * g.segs * g.rows * g.n for g in (geo.expand, geo.project)
-            if g is not None and g.splits > 1]
-    part = torch.empty(max(runs), dtype=torch.float32, device=dev) if runs else None
-    ptr = lambda key: folded[key].data_ptr() if key in folded else None  # noqa: E731
+    plan = _plan(b, h, w, x.shape[-1], ce, cse, folded["wp"].shape[1], kernel, stride,
+                 _sm_count(dev), "w1" in folded, fast, x.dtype == torch.bfloat16, residual)
+    out = torch.empty(plan.out_shape, dtype=x.dtype, device=dev)
+    # One scratch allocation. Scratch freed on return is handed out again
+    # only in stream order (the caching allocator), so after these launches
+    # have read and written it.
+    scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8, device=dev)
+    base = scratch.data_ptr()
     ptrs = (ctypes.c_void_p * 17)(
-        x.data_ptr(), ptr("w1"), ptr("b1"), ptr("wd"), ptr("bd"), ptr("wr"), ptr("br"),
-        ptr("we"), ptr("be"), ptr("wp"), ptr("bp"), out.data_ptr(),
-        None if e is None else e.data_ptr(), d.data_ptr(), partial.data_ptr(),
-        gate.data_ptr(), None if part is None else part.data_ptr())
-    dims = (ctypes.c_int * 12)(b, h, w, cin, ce, cse, cout, kernel, stride, int(fast),
-                               int(has_expand), int(x_bf16))
-    geom = (ctypes.c_int * 24)(
-        *_gemm_ints(geo.expand), geo.th, geo.tw, geo.dw_smem, geo.se_wg, geo.se_groups,
-        SE_THREADS, geo.se_smem, *_gemm_ints(geo.project), geo.nwy * geo.nwx)
+        x.data_ptr(), *(folded[key].data_ptr() if key in folded else None for key in KEYS),
+        out.data_ptr(), *(None if off is None else base + off for off in plan.offsets))
     stream = torch.cuda.current_stream(dev).cuda_stream
-    return out, _Launcher(build(), ptrs, dims, geom, stream, (out, e, d, partial, gate, part))
+    launch = _Launcher(build(), ptrs, plan.dims, plan.geom, stream, (x, folded, out, scratch))
+    return out[..., :cout], launch
 
 
 class _Launcher:
@@ -472,4 +512,4 @@ def fused_mbconv_eval_v2(x: torch.Tensor, folded: dict, kernel: int, stride: int
     launch(ALL_PHASES)
     global LAUNCHES
     LAUNCHES += 1
-    return out
+    return out.contiguous()

@@ -363,6 +363,32 @@ def test_mbconv_v2_stride2_k5_ragged_n_tile_on_card(fast):
         assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("shape", [(3, 1, 12, 12, 6), (5, 2, 12, 20, 6), (3, 1, 20, 20, 1),
+                                   (3, 1, 10, 14, 6)])
+def test_mbconv_v2_ragged_channels_and_unaligned_input_on_card(shape, fast):
+    """Channel counts that are not multiples of 8, which the wrapper pads
+    with zeros for the kernels: with the residual, without it where the
+    padded Cin and Cout are equal (10 -> 14), and without expand; and the
+    same input starting 4 bytes past a 16-byte boundary."""
+    _card()
+    k, s, cin, cout, expand = shape
+    folded = ops.fold_block(random_block(k, s, cin, cout, expand, seed=cin + cout).cuda())
+    x = nhwc_input(3, 9, 13, cin, seed=k).cuda()
+    unaligned = torch.empty(x.numel() + 1, device="cuda")[1:].view(x.shape)
+    unaligned.copy_(x)
+    before = v2.LAUNCHES
+    got = ops.fused_mbconv_eval_v2(x, folded, k, s, fast)
+    shifted = ops.fused_mbconv_eval_v2(unaligned, folded, k, s, fast)
+    torch.cuda.synchronize()
+    assert v2.LAUNCHES == before + 2
+    assert got.is_contiguous() and got.shape == (3, -(-9 // s), -(-13 // s), cout)
+    torch.testing.assert_close(got, shifted, rtol=0, atol=0)
+    ref = v2.fused_mbconv_eval_v2_plain(x, folded, k, s, fast)
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), **bars(fast, 3e-6))
+
+
 # (shape, clips): the stride-1 shapes above at 3 clips, two B2 shapes at 2
 # clips whose pass 2 splits the expanded channels (S > 1) over windows that
 # do not divide the map's width, and a k5 shape on a W=33 map whose pass 1
@@ -426,10 +452,4 @@ def test_mbconv_wrappers_refuse_bad_arguments_on_card():
         ops.fused_mbconv_eval(x, cpu_folded, 3)
     with pytest.raises(ValueError, match="gate"):
         v1.mbconv_pass2(x, folded, torch.zeros(2, 96), 3)
-    odd = ops.fold_block(random_block(3, 1, 12, 12, 6, seed=1).cuda())
-    with pytest.raises(ValueError, match="multiples of 8"):
-        ops.fused_mbconv_eval_v2(nhwc_input(2, 5, 7, 12, seed=1).cuda(), odd, 3)
-    with pytest.raises(ValueError, match="16-byte"):
-        ops.fused_mbconv_eval_v2(torch.zeros(2 * 5 * 7 * 16 + 1).cuda()[1:].view(2, 5, 7, 16),
-                                 folded, 3)  # contiguous, 4 bytes past a boundary
     assert (v1.LAUNCHES_PASS1, v1.LAUNCHES_PASS2, v2.LAUNCHES) == launches
