@@ -16,8 +16,8 @@ result line):
    the buffer) of noise plus tones with a silent tail, for every fbank
    precision. Prints the kernel's, the plain version's and the library
    yardsticks' times (CUDA events) beside the kernel's bound, and fails if
-   the kernel is not below cuBLAS's frames @ A; then the kernel at the
-   audioset_full training batch (128 full clips) beside its bound.
+   the kernel is not below cuBLAS's frames @ A; then the kernel at
+   bench.py's training batch (128 full clips) beside its bound.
 4. Serving at full width: EffNet-B2, 4 heads, 527 classes, T=1056,
    micro-batch 16, float32, a 2-member ensemble of seeded random weights
    (BatchNorm statistics drawn with numpy so the outputs are not flat).
@@ -40,6 +40,19 @@ result line):
    slices S, window pixels P); v2's four phase kernels (A expand, B
    depthwise, C squeeze-excite, D project) are also timed alone, per block
    and summed over the sweep, for fast=False and fast=True.
+6. Training at full width: the audioset_full train step (EffNet-B2, 4
+   heads, 527 classes, T=1056, batch 100, float32 with TF32 off; mixup
+   0.5, SpecAugment 48/192, drop-connect 0.2; Adam on the PSLA schedule
+   with the step counter past warmup) on seeded weights and an int16 batch
+   of ragged tone clips. One step through the fbank kernel (its launch
+   count set to 0 just before and read just after: one launch) is held to
+   the same step, with the same draws, through the plain fbank ('fft64'):
+   loss, running statistics and parameters; then remat=True from the same
+   start. 2 warm-up and 10 timed steps: device ms (CUDA events), wall ms,
+   clips/s, peak memory; the fbank kernel on the step's waveforms beside
+   its bound, its plain version and the library yardsticks, and its share
+   of a step. ``--profile`` adds a torch.profiler table of one step and its
+   device time by group.
 
 The line before the last is a JSON object with one record per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -81,6 +94,9 @@ from psla_tpu_torch.inference import _chunk_logmel, predict_long
 from psla_tpu_torch.models import create_model
 from psla_tpu_torch.ops import fused_mbconv, mbconv_vmem
 from psla_tpu_torch.tools.serve import InferenceEngine, make_server
+from psla_tpu_torch.train.optim import psla_lr_schedule
+from psla_tpu_torch.train.state import create_train_state
+from psla_tpu_torch.train.step import _wav_batch, draw_train, make_train_step_fn
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): float32
 # outside the tensor cores, and device memory bandwidth.
@@ -88,7 +104,7 @@ PEAK_F32_FLOP_S = 67e12
 PEAK_BYTES_S = 3.35e12
 
 BATCH, TARGET, N_CLASS, EFF_B, HEADS = 16, 1056, 527, 2, 4
-TRAIN_BATCH = 128  # the audioset_full training batch, for the fbank alone
+TRAIN_BATCH = 128  # bench.py's training batch, for the fbank alone (phase 3)
 SR = 16000
 FBANK_ATOL = 2e-4  # log-mel, kernel vs its plain version (f32 sum order)
 FFT_RTOL = 1e-4  # relative part of the JAX package's bar where an FFT is on either side
@@ -890,13 +906,257 @@ def mbconv_phase() -> list[dict]:
     return records
 
 
+# ---------------------------------------------------------------- phase 6
+
+# audioset_full (psla_tpu/config.py:169-173, 86-91): B2, 4 heads, 527
+# classes, T=1056, 128 mels, batch 100, mixup 0.5, SpecAugment 48/192,
+# drop-connect 0.2, Adam at lr 1e-4 with warmup and decay 0.5 from epoch 10.
+STEP_BATCH = 100
+STEP_LR, STEPS_PER_EPOCH = 1e-4, 20_000  # an epoch of ~2M clips at batch 100
+START_STEP = 2000  # past the 1000-step warmup, whose first 50 rates are 0
+WARM_STEPS, TIMED_STEPS = 2, 10
+STEP_LOSS_ATOL = 1e-5  # the loss through the kernel vs the plain fbank, and remat
+STATS_ATOL = 1e-5  # running statistics after that step (0.01 of a batch's)
+# Parameters after that step: Adam's first update of a parameter is
+# g / (|g| + eps) * lr, at most lr in size, so a gradient whose sign the
+# two fbanks' ~1e-6 log-mel difference flips moves it by up to 2 lr.
+PARAM_ATOL = 2 * STEP_LR
+
+
+def train_config() -> PreprocessConfig:
+    return PreprocessConfig(fbank=FbankConfig(precision="high"), target_length=TARGET,
+                            freq_mask=48, time_mask=192, mixup_rate=0.5)
+
+
+def train_batch(cfg: PreprocessConfig, seed: int = 5) -> dict:
+    """The loader's batch dict: int16 wire waveforms (tones plus noise) with
+    ragged lengths, their full-clip means, multi-hot labels, and mixup
+    partners that are the batch rolled by one."""
+    rng = np.random.default_rng(seed)
+    n = cfg.fbank.buffer_length(TARGET)
+    wav = np.stack([tones(rng, n) for _ in range(STEP_BATCH)])
+    lengths = np.full(STEP_BATCH, n, np.int32)
+    lengths[::7] = rng.integers(n // 8, n, lengths[::7].size)  # short clips
+    lengths[3] = 0
+    for i, length in enumerate(lengths):
+        wav[i, length:] = 0.0
+    pcm = np.round(np.clip(wav, -1.0, 1.0) * 32767.0).astype(np.int16)
+    f32 = pcm.astype(np.float32) * np.float32(2.0 ** -15)
+    means = np.array([f32[i, :length].mean() if length else 0.0
+                      for i, length in enumerate(lengths)], np.float32)
+    labels = (rng.uniform(size=(STEP_BATCH, N_CLASS)) < 0.01).astype(np.float32)
+    labels[np.arange(STEP_BATCH), rng.integers(N_CLASS, size=STEP_BATCH)] = 1.0
+    return {"wav": pcm, "wav_mean": means, "length": lengths, "labels": labels,
+            "mix_wav": np.roll(pcm, 1, 0), "mix_wav_mean": np.roll(means, 1),
+            "mix_length": np.roll(lengths, 1), "mix_labels": np.roll(labels, 1, 0)}
+
+
+def train_state(sd: dict, remat: bool = False):
+    model = create_model("efficientnet", label_dim=N_CLASS, eff_b=EFF_B, head_num=HEADS,
+                         remat=remat)
+    model.load_state_dict(sd)
+    schedule = psla_lr_schedule(STEP_LR, STEPS_PER_EPOCH, lrscheduler_start=10,
+                                lrscheduler_decay=0.5, warmup=True)
+    return create_train_state(model, schedule, step=START_STEP, device=DEVICE)
+
+
+def max_diff(a: dict, b: dict, keys) -> float:
+    return max(float((a[k] - b[k]).abs().max()) for k in keys)
+
+
+def training_phase(profile: bool) -> int:
+    """The audioset_full train step at full width; returns the fbank
+    kernel's launches in the step that is held to the plain fbank."""
+    cfg = train_config()
+    batch = train_batch(cfg)
+    sd = seeded_state_dict(SEEDS[0])
+    state = train_state(sd)
+    check(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32,
+          "TF32 is on for a float32 train step")
+    lr = state.schedule(state.step)
+    check(lr == STEP_LR, f"learning rate {lr} at step {state.step}")
+    plain_state = train_state(sd)
+    step = make_train_step_fn(cfg)
+    plain_step = make_train_step_fn(dataclasses.replace(cfg, fbank_method="fft64"))
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    draws = draw_train(gen, state.model, STEP_BATCH, cfg)
+    n_keep = 0 if draws.keep is None else draws.keep.shape[0]
+    print(f"train step: B{EFF_B}, {HEADS} heads, {N_CLASS} classes, T={TARGET}, batch "
+          f"{STEP_BATCH}, float32 (TF32 off), mixup {cfg.mixup_rate}, SpecAugment "
+          f"{cfg.freq_mask}/{cfg.time_mask}, drop-connect on {n_keep} blocks, Adam at "
+          f"lr {lr} (step {state.step}); int16 batch, {int((batch['length'] == 0).sum())} "
+          f"empty and {int((batch['length'] < batch['length'].max()).sum())} short clips")
+
+    # the main path: one step through the fbank kernel
+    before = {k: v.clone() for k, v in state.model.state_dict().items()}
+    torch.cuda.synchronize()
+    fbank_cuda.LAUNCHES = 0
+    state, metrics = step(state, batch, draws)
+    torch.cuda.synchronize()
+    launches = fbank_cuda.LAUNCHES
+    print(f"launches in one train step: {launches}")
+    check(launches == 1, f"{launches} fbank launches in one train step")
+    loss = float(metrics["loss"])
+    check(np.isfinite(loss), f"train loss {loss}")
+    plain_state, plain_metrics = plain_step(plain_state, batch, draws)
+    torch.cuda.synchronize()
+    check(fbank_cuda.LAUNCHES == 1, "the plain fbank launched the kernel")
+    after, plain_after = state.model.state_dict(), plain_state.model.state_dict()
+    stats = [k for k in after if k.endswith(("running_mean", "running_var"))]
+    params = [k for k, _ in state.model.named_parameters()]
+    loss_err = abs(loss - float(plain_metrics["loss"]))
+    stats_err, param_err = max_diff(after, plain_after, stats), max_diff(after, plain_after, params)
+    moved = sum(bool((after[k] != before[k]).any()) for k in params)
+    stats_moved = sum(bool((after[k] != before[k]).any()) for k in stats)
+    share = np.mean([float(((after[k] - plain_after[k]).abs() > 1e-6).float().mean())
+                     for k in params])
+    print(f"loss {loss:.6f}; vs the same step through the plain fbank ('fft64'): loss "
+          f"{loss_err:.3e} (bar {STEP_LOSS_ATOL}), running statistics {stats_err:.3e} (bar "
+          f"{STATS_ATOL}), parameters {param_err:.3e} (bar {PARAM_ATOL}; mean share of a "
+          f"tensor's entries off by > 1e-6: {share:.2e}); {moved}/{len(params)} parameter "
+          f"and {stats_moved}/{len(stats)} statistics tensors changed")
+    check(loss_err <= STEP_LOSS_ATOL, f"train loss off the plain fbank's by {loss_err}")
+    check(stats_err <= STATS_ATOL, f"running statistics off by {stats_err}")
+    check(param_err <= PARAM_ATOL, f"parameters off by {param_err}")
+    check(moved == len(params) and stats_moved == len(stats),
+          f"{moved}/{len(params)} parameters and {stats_moved}/{len(stats)} statistics moved")
+    del plain_state, plain_after
+
+    # remat: the same draws from the same start
+    remat_state = train_state(sd, remat=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    remat_state, remat_metrics = step(remat_state, batch, draws)
+    torch.cuda.synchronize()
+    remat_peak = torch.cuda.max_memory_allocated()
+    remat_err = abs(float(remat_metrics["loss"]) - loss)
+    remat_stats = max_diff(remat_state.model.state_dict(), after, stats)
+    print(f"remat=True: loss {remat_err:.3e} from remat=False (bar {STEP_LOSS_ATOL}), "
+          f"running statistics {remat_stats:.3e}; peak memory {remat_peak / 2**30:.2f} GiB")
+    check(remat_err <= STEP_LOSS_ATOL, f"remat loss off by {remat_err}")
+    check(remat_stats <= STATS_ATOL, f"remat statistics off by {remat_stats}")
+    del remat_state
+
+    # time: warm-up steps, then timed steps with fresh draws each
+    for _ in range(WARM_STEPS):
+        state, metrics = step(state, batch, draw_train(gen, state.model, STEP_BATCH, cfg))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fbank_cuda.LAUNCHES = 0
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(TIMED_STEPS)]
+    losses = []
+    t0 = time.perf_counter()
+    for start, end in events:
+        start.record()
+        state, metrics = step(state, batch, draw_train(gen, state.model, STEP_BATCH, cfg))
+        end.record()
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    device_ms = [a.elapsed_time(b) for a, b in events]
+    losses = [float(x) for x in losses]
+    check(fbank_cuda.LAUNCHES == TIMED_STEPS,
+          f"{fbank_cuda.LAUNCHES} fbank launches in {TIMED_STEPS} steps")
+    check(bool(np.all(np.isfinite(losses))), f"train losses {losses}")
+    print(f"train step, {TIMED_STEPS} steps after {WARM_STEPS} warm-up: device "
+          f"{np.mean(device_ms):.2f} ms/step (CUDA events; {min(device_ms):.2f}-"
+          f"{max(device_ms):.2f}), wall {wall_ms:.2f} ms/step, "
+          f"{STEP_BATCH / wall_ms * 1e3:.1f} clips/s; peak memory {peak / 2**30:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated; remat=True {remat_peak / 2**30:.2f}); losses "
+          f"{losses[0]:.4f} .. {losses[-1]:.4f}; step counter {state.step}")
+    fbank_at_train_batch(cfg, batch, draws, float(np.mean(device_ms)))
+    if profile:
+        profile_train_step(state, step, batch, gen, cfg)
+    return launches
+
+
+def fbank_at_train_batch(cfg: PreprocessConfig, batch: dict, draws, step_ms: float):
+    """The kernel on a train step's mixed waveforms, beside its bound, its
+    plain version and the library yardsticks, and its share of a step."""
+    from psla_tpu_torch.frontend import augment
+
+    wb = _wav_batch(batch, torch.device(DEVICE))
+    wav, _, _ = augment.mixup_waveforms(
+        wb.wav, wb.wav_mean, wb.length, wb.mix_wav, wb.mix_wav_mean, wb.mix_length,
+        wb.labels, wb.mix_labels, draws.pre.mixup, cfg.mixup_rate)
+    wav, lengths, fc = wav.contiguous(), wb.length, cfg.fbank
+    frames = wav.unfold(-1, fc.window_size, fc.window_shift)[:, :TARGET]
+    frames = frames.reshape(-1, fc.window_size).contiguous()
+    a = torch.from_numpy(frontend_matrix(fc)).to(DEVICE)
+    fns = {"kernel": lambda: fbank_cuda.fbank_cuda(wav, lengths, fc, TARGET),
+           "plain": lambda: fbank_cuda.fbank_plain(wav, lengths, fc, TARGET),
+           "library": lambda: torch.matmul(frames, a),
+           "rfft": lambda: torch.fft.rfft(frames, n=fc.padded_window_size)}
+    times: dict[str, list[float]] = {}
+    for name in ("plain", "kernel", "library", "rfft", "rfft", "library", "kernel", "plain"):
+        times.setdefault(name, []).append(cuda_ms(fns[name], reps=10))
+    ms = {k: float(np.mean(v)) for k, v in times.items()}
+    err = float((fns["kernel"]() - fns["plain"]()).abs().max())
+    check(err <= FBANK_ATOL, f"fbank in the train step: error {err}")
+    bound = fbank_bound(fc, batch["length"], wav.shape[1])
+    print(f"fbank in the train step, max abs err vs plain {err:.3e} (bar {FBANK_ATOL})")
+    print(f"fbank in the train step [{STEP_BATCH}, {wav.shape[1]}] -> [{STEP_BATCH}, {TARGET}, "
+          f"{fc.num_mel_bins}] ({bound['frames']} valid frames): kernel {ms['kernel']:.4f} ms "
+          f"{times['kernel']}, plain ('fft64') {ms['plain']:.4f}, library (cuBLAS f32 "
+          f"frames[{frames.shape[0]},{frames.shape[1]}] @ A) {ms['library']:.4f}, cuFFT rfft "
+          f"{ms['rfft']:.4f}; bound {bound['ms']:.4f} ms ({bound['by']}: "
+          f"{bound['bytes'] / 1e6:.3f} MB, {bound['flop'] / 1e9:.4f} GFLOP), kernel at "
+          f"{bound['ms'] / ms['kernel']:.1%} of it; {ms['kernel'] / step_ms:.2%} of a "
+          f"{step_ms:.2f} ms step")
+
+
+# Device kernels of a train step by what they compute, matched on the
+# kernel's name in this order (the first match wins).
+KERNEL_GROUPS = (
+    ("depthwise conv backward", r"conv_depthwise.*(backward|grad)"),
+    ("depthwise conv forward", r"conv_depthwise"),
+    ("BatchNorm backward", r"bn_bw|batch_norm_backward|batch_norm_collect_stat.*backward"),
+    ("BatchNorm forward", r"bn_fw|batch_norm"),
+    ("convolutions and products (cuDNN, cuBLAS)",
+     r"xmma|implicit_gemm|wgrad|dgrad|gemm|cudnn|cutlass|sm90_|winograd|fft2d"),
+    ("fbank kernel", r"fbank"),
+    ("Adam (foreach)", r"foreach|adam"),
+    ("host-device copies", r"Memcpy|Memset"),
+)
+
+
+def profile_train_step(state, step, batch: dict, gen: torch.Generator,
+                       cfg: PreprocessConfig):
+    """Device time by kernel over one train step, and by group."""
+    from torch.profiler import ProfilerActivity, profile
+
+    draws = draw_train(gen, state.model, STEP_BATCH, cfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(state, batch, draws)
+        torch.cuda.synchronize()
+    averages = prof.key_averages()
+    print(averages.table(sort_by="self_cuda_time_total", row_limit=30))
+    groups: dict[str, float] = {}
+    launches = 0
+    for e in averages:
+        if e.device_type != torch.autograd.DeviceType.CUDA or not e.self_device_time_total:
+            continue
+        launches += e.count
+        name = next((g for g, pattern in KERNEL_GROUPS if re.search(pattern, e.key, re.I)),
+                    "elementwise and other (SiLU, squeeze-excite, mixup, masks, ...)")
+        groups[name] = groups.get(name, 0.0) + e.self_device_time_total / 1e3
+    total = sum(groups.values())
+    print(f"train step device time by group ({total:.2f} ms in {launches} kernels and copies):")
+    for name, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"  {name}: {ms:.2f} ms ({ms / total:.1%})")
+
+
 # ---------------------------------------------------------------- main
 
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--profile", action="store_true",
-                   help="also print device time by kernel for one dispatch")
+                   help="also print device time by kernel for one dispatch and one "
+                        "train step")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -908,6 +1168,8 @@ def main(argv=None) -> int:
     record = kernel_phase()
     record["launches"] = serving_phase(args.profile)
     records = [record] + mbconv_phase()
+    torch.cuda.empty_cache()
+    record["launches_per_train_step"] = training_phase(args.profile)
     for r in records:
         check(r["launches"] > 0, f"kernel {r['name']} was not launched on its path")
     print(f"total {time.perf_counter() - t0:.1f} s")

@@ -52,9 +52,10 @@ class FbankConfig:
     remove_dc_offset: bool = True
     low_freq: float = 20.0
     high_freq: float = 0.0  # <=0 means nyquist + high_freq
-    # Kept so a config reads the same in both packages. Every value runs
-    # full float32 here: the plain lowerings' matmuls are float32 (TF32 is
-    # off), and the CUDA kernel accumulates in float32 FMA for all three.
+    # Kept so a config reads the same in both packages; no value changes
+    # the arithmetic here. The plain lowerings' matmuls are float32 (TF32 is
+    # off), and the CUDA kernel computes its spectrum in float64 (up to each
+    # bin's power; the mel sums and the log in float32) for all three.
     precision: str = "highest"
 
     @property

@@ -1,4 +1,4 @@
-"""EfficientNet-attention models (eval forward) and checkpoint conversion."""
+"""EfficientNet-attention models (eval and train forward) and checkpoint conversion."""
 
 from psla_tpu_torch.models.effnet_att import EffNetAttention
 from psla_tpu_torch.models.registry import MODEL_REGISTRY, create_model

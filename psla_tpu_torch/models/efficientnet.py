@@ -1,4 +1,4 @@
-"""EfficientNet-B0..B7 backbone (features only), eval forward.
+"""EfficientNet-B0..B7 backbone (features only).
 
 Port of ``psla_tpu/models/efficientnet.py``: the architecture behind the
 reference's ``EfficientNet.from_name('efficientnet-b{b}', in_channels=1)``
@@ -8,22 +8,30 @@ project 1x1, BN + swish) -> head 1x1 conv. Attribute names are
 efficientnet_pytorch's, so the state_dict has the reference's keys
 (``_conv_stem``, ``_bn0``, ``_blocks.{i}._expand_conv``, ...).
 
-The forward is the eval forward: BatchNorm from running statistics and no
-stochastic depth. ``drop_rate`` is kept on each block for the training
-slice.
+In eval mode BatchNorm uses its running statistics and no block drops.
+In train mode BatchNorm uses batch statistics and every block with a skip
+drops its residual branch per sample at ``drop_rate`` = 0.2 * idx / blocks
+(stochastic depth), from keep masks the caller passes (``keep``, one [B]
+bool row per such block, in block order: ``drop_blocks``; made by
+``train.step.draw_train``). ``remat`` recomputes each block's forward in
+backward (``torch.utils.checkpoint``), as the JAX package's ``nn.remat``
+does: only the block boundaries are kept.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from psla_tpu_torch.models.layers import (
     BatchNorm,
     SameConv2d,
     conv_bn,
+    drop_connect,
     round_filters,
     round_repeats,
 )
@@ -116,7 +124,29 @@ class MBConvBlock(nn.Module):
         self._project_conv = SameConv2d(expanded, out_filters, 1)
         self._bn2 = BatchNorm(out_filters)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    @property
+    def can_drop(self) -> bool:
+        """Whether train mode drops this block's residual branch."""
+        return self.has_skip and self.drop_rate > 0
+
+    def remat_contexts(self):
+        """``checkpoint``'s context_fn: the recomputed forward runs with
+        the block's BatchNorms ``replaying``."""
+
+        @contextlib.contextmanager
+        def replaying():
+            bns = [m for m in self.modules() if isinstance(m, BatchNorm)]
+            for bn in bns:
+                bn.replaying = True
+            try:
+                yield
+            finally:
+                for bn in bns:
+                    bn.replaying = False
+
+        return contextlib.nullcontext(), replaying()
+
+    def forward(self, x: torch.Tensor, keep: torch.Tensor | None = None) -> torch.Tensor:
         inputs = x
         if hasattr(self, "_expand_conv"):
             x = conv_bn(x, self._expand_conv, self._bn0, "silu")
@@ -127,6 +157,8 @@ class MBConvBlock(nn.Module):
             x = x * torch.sigmoid(s)
         x = conv_bn(x, self._project_conv, self._bn2, None)
         if self.has_skip:
+            if self.training and self.can_drop:
+                x = drop_connect(x, keep, self.drop_rate)
             x = x + inputs
         return x
 
@@ -134,8 +166,10 @@ class MBConvBlock(nn.Module):
 class EfficientNet(nn.Module):
     """EfficientNet feature extractor. NCHW in; [B, C, H/32, W/32] out."""
 
-    def __init__(self, b: int = 2, drop_connect_rate: float = DROP_CONNECT_RATE):
+    def __init__(self, b: int = 2, drop_connect_rate: float = DROP_CONNECT_RATE,
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         stem, blocks, head = efficientnet_arch(b)
         self.feature_dim = head
         self._conv_stem = SameConv2d(1, stem, 3, 2)
@@ -157,8 +191,24 @@ class EfficientNet(nn.Module):
         self._conv_head = SameConv2d(blocks[-1][0].out_filters, head, 1)
         self._bn1 = BatchNorm(head)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    @property
+    def drop_blocks(self) -> list[int]:
+        """Indices of the blocks that take a keep mask in train mode."""
+        return [i for i, blk in enumerate(self._blocks) if blk.can_drop]
+
+    def forward(self, x: torch.Tensor,
+                keep: torch.Tensor | None = None) -> torch.Tensor:
+        """``keep``: [len(drop_blocks), B] bool, read in train mode only."""
+        if self.training and keep is None and self.drop_blocks:
+            raise ValueError("train mode drops blocks: pass their keep masks "
+                             "(train.step.draw_train)")
         x = conv_bn(x, self._conv_stem, self._bn0, "silu")
+        masks = iter(keep) if keep is not None else None
         for block in self._blocks:
-            x = block(x)
+            k = next(masks) if masks is not None and block.can_drop else None
+            if self.remat and torch.is_grad_enabled():
+                x = checkpoint(block, x, k, use_reentrant=False,
+                               context_fn=block.remat_contexts)
+            else:
+                x = block(x, k)
         return conv_bn(x, self._conv_head, self._bn1, "silu")

@@ -6,8 +6,10 @@ reference feeds it) -> EfficientNet features -> mean over the residual
 frequency axis -> attention pooling over time -> ``[B, n_classes]``
 probabilities in (0, 1).
 
-The forward is the eval forward; the training forward comes with the
-training slice, so ``train(True)`` raises.
+A model starts in eval mode (running BatchNorm statistics, no
+stochastic depth); ``train()`` switches to batch statistics and
+drop-connect (efficientnet.py), whose keep masks ``forward`` takes as
+``keep``.
 """
 
 from __future__ import annotations
@@ -22,12 +24,13 @@ from psla_tpu_torch.models.pooling import AttentionPool, MeanPool, MultiHeadAtte
 class EffNetAttention(nn.Module):
     def __init__(self, label_dim: int = 527, b: int = 2, head_num: int = 4,
                  dtype: torch.dtype = torch.float32,
-                 drop_connect_rate: float = 0.2):
+                 drop_connect_rate: float = 0.2, remat: bool = False):
         super().__init__()
         self.label_dim, self.b, self.head_num = label_dim, b, head_num
         # compute dtype of the forward; parameters stay float32
         self.dtype = dtype
-        self.effnet = EfficientNet(b=b, drop_connect_rate=drop_connect_rate)
+        self.effnet = EfficientNet(b=b, drop_connect_rate=drop_connect_rate,
+                                   remat=remat)
         c = self.effnet.feature_dim
         if head_num > 1:
             # the reference always builds 4 heads whatever head_num says
@@ -44,18 +47,12 @@ class EffNetAttention(nn.Module):
             )
         self.eval()
 
-    def train(self, mode: bool = True):
-        if mode:
-            raise NotImplementedError(
-                "EffNetAttention has only its eval forward so far; the "
-                "training forward comes with the training slice"
-            )
-        return super().train(False)
-
-    def forward(self, x: torch.Tensor, return_stats: bool = False):
+    def forward(self, x: torch.Tensor, return_stats: bool = False,
+                keep: torch.Tensor | None = None):
         """[B, T, F] log-mel -> [B, label_dim] probabilities (float32), or the
-        pooling partial sums with ``return_stats=True`` (see pooling.py)."""
+        pooling partial sums with ``return_stats=True`` (see pooling.py).
+        ``keep``: the drop-connect masks of train mode (EfficientNet.forward)."""
         x = x.transpose(1, 2).unsqueeze(1).to(self.dtype)  # [B, 1, F, T]
-        feats = self.effnet(x)  # [B, C, F/32, T/32]
+        feats = self.effnet(x, keep)  # [B, C, F/32, T/32]
         feats = feats.mean(dim=2).transpose(1, 2)  # [B, T/32, C]
         return self.attention(feats, return_stats=return_stats)

@@ -1,4 +1,4 @@
-"""Shared building blocks: TF-SAME convolutions and eval-mode BatchNorm.
+"""Shared building blocks: TF-SAME convolutions, BatchNorm, drop-connect.
 
 Port of ``psla_tpu/models/layers.py``. Layout is NCHW (PyTorch's), against
 the JAX package's NHWC; the state_dict keeps the reference's
@@ -20,6 +20,10 @@ import torch.nn.functional as F
 from torch import nn
 
 BN_EPS = 1e-3
+# torch's momentum convention (running = (1 - m) * running + m * batch):
+# the JAX package's flax momentum 0.99, and the reference backbone's
+# (efficientnet_pytorch) BatchNorm2d(momentum=0.01).
+BN_MOMENTUM = 0.01
 
 
 def round_filters(filters: int, width_coefficient: float, divisor: int = 8) -> int:
@@ -74,34 +78,66 @@ class SameConv2d(nn.Conv2d):
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm2d from running statistics (eps 1e-3).
+    """BatchNorm2d with eps 1e-3: running statistics in eval mode (the
+    mode it starts in), batch statistics in train mode.
 
     Keys match ``nn.BatchNorm2d`` (weight, bias, running_mean, running_var)
     without ``num_batches_tracked``, which ``convert.normalize_state_dict``
     drops from reference checkpoints. Statistics and affine parameters stay
-    float32 whatever the activation dtype. A float32 input takes one
-    ``addcmul`` with the folded scale and shift; any other dtype is computed
-    in float32 in flax's order, ``(x - mean) * mul + bias``, and rounded once
-    to the input's dtype, as ``flax.linen.normalization._normalize`` does
-    (rounding the folded scale and shift first loses the result where
-    ``x * mul`` and the shift cancel, as they do for large running means).
+    float32 whatever the activation dtype.
+
+    Eval: a float32 input takes one ``addcmul`` with the folded scale and
+    shift; any other dtype is computed in float32 in flax's order,
+    ``(x - mean) * mul + bias``, and rounded once to the input's dtype, as
+    ``flax.linen.normalization._normalize`` does (rounding the folded scale
+    and shift first loses the result where ``x * mul`` and the shift
+    cancel, as they do for large running means).
+
+    Train (``psla_tpu.models.layers.ReferenceBatchNorm``): normalize with
+    the biased batch variance; fold the unbiased one (x n/(n-1),
+    n = B*H*W) into ``running_var`` with momentum 0.01. That is
+    ``F.batch_norm``'s own rule, and it is one call each way where flax's
+    formula would be several passes and keep one more activation for
+    backward. flax takes the batch variance as E[x^2] - E[x]^2 in float32
+    (clipped at 0), ``F.batch_norm`` subtracts the mean first, which is the
+    more exact: tests/test_torch_train.py holds the layer to the float64
+    BatchNorm at 1e-6, and to ReferenceBatchNorm at 1e-6 plus flax's own
+    rounding, which grows with n. While ``replaying``
+    (the recomputed forward of a rematerialized block) the statistics are
+    folded into copies, so a step updates the buffers once.
     """
 
     def __init__(self, num_features: int, eps: float = BN_EPS):
         super().__init__()
         self.eps = eps
+        self.replaying = False
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
+        self.train(False)  # eval until asked, like the model that holds it
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            mean, var = self.running_mean, self.running_var
+            if self.replaying:
+                mean, var = mean.clone(), var.clone()
+            return F.batch_norm(x, mean, var, self.weight, self.bias, True,
+                                BN_MOMENTUM, self.eps)
         mul = self.weight * torch.rsqrt(self.running_var + self.eps)
         if x.dtype == torch.float32:
             shift = self.bias - self.running_mean * mul
             return torch.addcmul(shift[:, None, None], x, mul[:, None, None])
         y = (x.float() - self.running_mean[:, None, None]) * mul[:, None, None]
         return (y + self.bias[:, None, None]).to(x.dtype)
+
+
+def drop_connect(x: torch.Tensor, keep: torch.Tensor, rate: float) -> torch.Tensor:
+    """Stochastic depth (``psla_tpu.models.layers.drop_connect``): the whole
+    residual branch of a sample is kept with probability 1 - rate and scaled
+    by 1 / (1 - rate), or zeroed. ``keep`` is the [B] bool draw."""
+    keep_prob = 1.0 - rate
+    return torch.where(keep.view(-1, *(1,) * (x.dim() - 1)), x / keep_prob, 0.0)
 
 
 def activation(x: torch.Tensor, act: str | None) -> torch.Tensor:

@@ -18,12 +18,16 @@ def create_model(
     head_num: int = 4,
     dtype: torch.dtype = torch.float32,
     generator: torch.Generator | None = None,
+    remat: bool = False,
+    drop_connect_rate: float = 0.2,
 ) -> EffNetAttention:
-    """Build the eval module for a model name (run.py's --model choices).
+    """Build the module for a model name (run.py's --model choices), in
+    eval mode.
 
     Weights are initialised as the JAX package initialises them (He-normal
     over fan-out for convs, the reference's uniform for the pooling heads),
-    drawn from ``generator`` (default: seeded with 0).
+    drawn from ``generator`` (default: seeded with 0). ``remat`` and
+    ``drop_connect_rate`` act in train mode (models/efficientnet.py).
     """
     if name in ("resnet", "mbnet"):
         raise NotImplementedError(
@@ -33,7 +37,8 @@ def create_model(
     if name != "efficientnet":
         raise ValueError(f"unknown model {name!r}; choices: {MODEL_REGISTRY}")
     model = EffNetAttention(label_dim=label_dim, b=eff_b, head_num=head_num,
-                            dtype=dtype)
+                            dtype=dtype, drop_connect_rate=drop_connect_rate,
+                            remat=remat)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     for mod in model.modules():

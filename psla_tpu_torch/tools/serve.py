@@ -70,8 +70,8 @@ class InferenceEngine:
 
     ``model`` is an ``nn.Module`` with its weights, or a list of them (an
     ensemble). The engine keeps its own copies on ``device`` in eval mode.
-    In float32 it switches TF32 off for cuDNN and cuBLAS (process-wide; the
-    only place the port sets these flags), so the served probabilities
+    In float32 it switches TF32 off for cuDNN and cuBLAS (process-wide, as
+    ``train.state.create_train_state`` does), so the served probabilities
     match an offline float32 forward.
     """
 

@@ -143,8 +143,9 @@ def test_unported_backbones_raise():
     for name in ("resnet", "mbnet"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             create_model(name, label_dim=N_CLASS)
-    with pytest.raises(NotImplementedError):
-        create_model("efficientnet", label_dim=N_CLASS, eff_b=0).train()
+    # the EfficientNet has its training forward now
+    model = create_model("efficientnet", label_dim=N_CLASS, eff_b=0)
+    assert not model.training and model.train() is model and model.training
 
 
 @pytest.mark.parametrize("size,kernel,stride", [
