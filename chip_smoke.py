@@ -53,6 +53,27 @@ result line):
    its bound, its plain version and the library yardsticks, and its share
    of a step. ``--profile`` adds a torch.profiler table of one step and its
    device time by group.
+7. The trainer end to end: ``psla-torch-train``'s entry point
+   (``cli.run``) at the audioset_full preset (B2, 4 heads, 527 classes,
+   T=1056, batch 100, float32, mixup, SpecAugment, balanced sampling, the
+   int16 wire, pinned prefetch 2 batches ahead) on a seeded corpus of tone
+   clips written here (300 train and 100 val clips of 10 s, 1-3 classes
+   each, with their balanced-sampling weights), cut to 2 epochs from a
+   fresh initialisation without warmup: the loader's decode rate alone,
+   then train, validate, checkpoints, weight averaging over epochs 1-2 and
+   the protocol with the val list as the eval set. The fbank kernel's
+   launches (set to 0 just before, read just after) must equal the train
+   steps plus every eval batch, and those from the start of epoch 2 to the
+   end of its validation its steps plus its val batches; the kernel is held
+   to its plain version on the protocol's first eval batch (twice the train
+   batch, its padded tail included); result.csv, the prediction CSVs and the
+   checkpoints must exist and be finite; the wa checkpoint must serve
+   through ``InferenceEngine``. Then the same command for 1 epoch and
+   again for 2 with ``--resume``: the sampled indices and the steps' draws
+   must equal the uninterrupted run's, and the epoch-2 losses be within
+   2e-2. Prints the trainer's clips/s beside phase 6's bare step, the
+   meters, the decode rate and peak memory; ``--profile`` adds the card's
+   idle share over epoch 2's steps and where the copies to the card ran.
 
 The line before the last is a JSON object with one record per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -64,10 +85,13 @@ import argparse
 import concurrent.futures
 import dataclasses
 import json
+import os
 import re
+import shutil
 import struct
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.error
@@ -76,8 +100,10 @@ import urllib.request
 import numpy as np
 import torch
 
-from psla_tpu_torch import assets
-from psla_tpu_torch.data.datafiles import make_name_dict
+from psla_tpu_torch import assets, cli
+from psla_tpu_torch.data import native
+from psla_tpu_torch.data.datafiles import load_label_csv, make_name_dict, save_datafile
+from psla_tpu_torch.data.sampler import gen_weight_file
 from psla_tpu_torch.data.wav import decode_wav, resample
 from psla_tpu_torch.frontend import fbank_cuda
 from psla_tpu_torch import ops
@@ -92,8 +118,10 @@ from psla_tpu_torch.frontend.fbank import (
 from psla_tpu_torch.frontend.pipeline import PreprocessConfig
 from psla_tpu_torch.inference import _chunk_logmel, predict_long
 from psla_tpu_torch.models import create_model
+from psla_tpu_torch.models.convert import load_variables
 from psla_tpu_torch.ops import fused_mbconv, mbconv_vmem
 from psla_tpu_torch.tools.serve import InferenceEngine, make_server
+from psla_tpu_torch.train.loop import Trainer
 from psla_tpu_torch.train.optim import psla_lr_schedule
 from psla_tpu_torch.train.state import create_train_state
 from psla_tpu_torch.train.step import _wav_batch, draw_train, make_train_step_fn
@@ -137,12 +165,16 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 # ---------------------------------------------------------------- phase 1-2
 
 
-def header():
-    smi = subprocess.run(
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
-    print(smi)
+
+
+def header():
+    print(card())
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]} device {torch.cuda.get_device_name(0)}")
 
@@ -964,9 +996,10 @@ def max_diff(a: dict, b: dict, keys) -> float:
     return max(float((a[k] - b[k]).abs().max()) for k in keys)
 
 
-def training_phase(profile: bool) -> int:
+def training_phase(profile: bool) -> tuple[int, float]:
     """The audioset_full train step at full width; returns the fbank
-    kernel's launches in the step that is held to the plain fbank."""
+    kernel's launches in the step that is held to the plain fbank, and the
+    timed steps' clips/s."""
     cfg = train_config()
     batch = train_batch(cfg)
     sd = seeded_state_dict(SEEDS[0])
@@ -1069,7 +1102,7 @@ def training_phase(profile: bool) -> int:
     fbank_at_train_batch(cfg, batch, draws, float(np.mean(device_ms)))
     if profile:
         profile_train_step(state, step, batch, gen, cfg)
-    return launches
+    return launches, STEP_BATCH / wall_ms * 1e3
 
 
 def fbank_at_train_batch(cfg: PreprocessConfig, batch: dict, draws, step_ms: float):
@@ -1149,6 +1182,291 @@ def profile_train_step(state, step, batch: dict, gen: torch.Generator,
         print(f"  {name}: {ms:.2f} ms ({ms / total:.1%})")
 
 
+# ---------------------------------------------------------------- phase 7
+
+# The trainer end to end: psla-torch-train's entry point (cli.run) at the
+# audioset_full preset on a seeded corpus of tone clips, cut to 300 train
+# and 100 val clips (3 steps an epoch at batch 100) and 2 epochs.
+TRAIN_CLIPS, VAL_CLIPS, CLIP_SECONDS = 300, 100, 10
+TRAJECTORY_BAR = 2e-2  # the JAX package's loss-trajectory bar (test_torch_twin.py:158)
+
+
+def write_corpus(root: str) -> tuple[str, str, str]:
+    """Seeded PCM16 clips, each holding tones of 1-3 AudioSet classes (the
+    class's own frequency), their datafile JSONs and the balanced-sampling
+    weights (``gen_weight_file``). Returns (train json, val json, weights)."""
+    label_csv = assets.label_csv_for("audioset")
+    mids = [row["mid"] for row in load_label_csv(label_csv)]
+    freqs = np.linspace(100.0, 7000.0, len(mids))
+    rng = np.random.default_rng(9)
+    t = np.arange(int(CLIP_SECONDS * SR)) / SR
+    files = {}
+    for split, count in (("train", TRAIN_CLIPS), ("val", VAL_CLIPS)):
+        entries = []
+        for i in range(count):
+            classes = rng.choice(len(mids), size=rng.integers(1, 4), replace=False)
+            x = 0.01 * rng.standard_normal(t.size)
+            for c in classes:
+                x += 0.25 * np.sin(2 * np.pi * freqs[c] * t + rng.uniform(0, 2 * np.pi))
+            path = os.path.join(root, f"{split}_{i:04d}.wav")
+            with open(path, "wb") as f:
+                f.write(wav_bytes(x, SR))
+            entries.append({"wav": path, "labels": ",".join(mids[c] for c in classes)})
+        files[split] = os.path.join(root, f"{split}.json")
+        save_datafile(files[split], entries)
+    weights = gen_weight_file(files["train"], label_csv)
+    return files["train"], files["val"], weights
+
+
+class RecordingTrainer(Trainer):
+    """The CLI's trainer, recording what each run sampled and drew: the
+    train loader's indices by epoch, each step's draws (kept on the card,
+    so the run adds no host sync), and the fbank kernel's launch count when
+    each epoch starts and when its validation ends."""
+
+    runs: list = []
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.indices: dict[int, np.ndarray] = {}
+        self.drawn: dict[int, torch.Tensor] = {}
+        self.fbank_at: dict[tuple[str, int], int] = {}
+        RecordingTrainer.runs.append(self)
+        loader = self.train_loader
+        epoch_indices, set_epoch = loader._epoch_indices, loader.set_epoch
+
+        def recorded():
+            idx = epoch_indices()
+            self.indices[loader._epoch] = idx.copy()
+            return idx
+
+        def counted_set_epoch(epoch):
+            self.fbank_at["start", epoch] = fbank_cuda.LAUNCHES
+            set_epoch(epoch)
+
+        loader._epoch_indices = recorded
+        loader.set_epoch = counted_set_epoch
+
+    def validate(self, state, loader, epoch, eval_target=False):
+        out = super().validate(state, loader, epoch, eval_target)
+        if loader is self.val_loader and isinstance(epoch, int):
+            self.fbank_at["validated", epoch] = fbank_cuda.LAUNCHES
+        return out
+
+    def epoch_launches(self, epoch: int) -> int:
+        """The fbank kernel's launches from the start of ``epoch`` to the
+        end of its validation."""
+        return self.fbank_at["validated", epoch] - self.fbank_at["start", epoch]
+
+    def draws(self, step, batch_size):
+        d = super().draws(step, batch_size)
+        parts = [d.pre.mixup.gate, d.pre.mixup.lam, *d.pre.freq, *d.pre.time, d.keep]
+        self.drawn[step] = torch.cat([x.flatten().float() for x in parts])
+        return d
+
+
+def run_cli(argv: list[str]) -> RecordingTrainer:
+    RecordingTrainer.runs.clear()
+    cli.Trainer = RecordingTrainer
+    try:
+        cli.run(argv)
+    finally:
+        cli.Trainer = Trainer
+    (trainer,) = RecordingTrainer.runs
+    return trainer
+
+
+def trace_summary(path: str) -> str:
+    """The card's idle share over a profiled window, and where its
+    host-to-card copies ran: stream, bytes, and the share of their time
+    that kernels on other streams overlapped."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    dev = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+           and e.get("dur")]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in dev)
+
+    def union(iv):
+        out = []
+        for a, b in sorted(iv):
+            if out and a <= out[-1][1]:
+                out[-1][1] = max(out[-1][1], b)
+            else:
+                out.append([a, b])
+        return out
+
+    busy = sum(b - a for a, b in union(spans))
+    window = spans[-1][1] - spans[0][0]
+    kernels = [e for e in dev if e["cat"] == "kernel"]
+    compute = max({e["args"].get("stream") for e in kernels},
+                  key=lambda s: sum(e["dur"] for e in kernels if e["args"].get("stream") == s))
+    h2d = [e for e in dev if e["cat"] == "gpu_memcpy" and "HtoD" in e["name"]]
+    busy_k = union((e["ts"], e["ts"] + e["dur"]) for e in kernels)
+    overlap = sum(max(0.0, min(b, e["ts"] + e["dur"]) - max(a, e["ts"]))
+                  for e in h2d for a, b in busy_k)
+    copy_us = sum(e["dur"] for e in h2d)
+    streams = sorted({e["args"].get("stream") for e in h2d}, key=str)
+    kinds = sorted({e["name"] for e in h2d})
+    nbytes = sum(e["args"].get("bytes", 0) for e in h2d)
+    return (f"window {window / 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms, idle share "
+            f"{1 - busy / window:.2%}; {len(kernels)} kernels, compute stream {compute}; "
+            f"host-to-card copies: {len(h2d)} ({nbytes / 1e6:.1f} MB, {copy_us / 1e3:.2f} ms) "
+            f"{kinds} on streams {streams}, {overlap / max(copy_us, 1e-9):.1%} of their time "
+            f"under kernels")
+
+
+def eval_batch_fbank(loader, pre: PreprocessConfig):
+    """The fbank kernel against its plain version on the first batch of the
+    protocol's eval loader (twice the train batch, its padded tail
+    included), on the waveforms the eval step gives it."""
+    from psla_tpu_torch.frontend import augment
+
+    batches = iter(loader)
+    try:
+        batch = next(batches)
+    finally:
+        batches.close()
+    wb = _wav_batch(batch, torch.device(DEVICE))
+    wav = augment.dc_remove(wb.wav, wb.wav_mean, wb.length).contiguous()
+    lengths, fc = wb.length.to(torch.int32), pre.fbank
+    got = fbank_cuda.fbank_cuda(wav, lengths, fc, pre.target_length)
+    want = fbank_cuda.fbank_plain(wav, lengths, fc, pre.target_length)
+    err = float((got - want).abs().max())
+    print(f"fbank on an eval batch [{wav.shape[0]}, {wav.shape[1]}] ({batch['n_valid']} valid "
+          f"rows), max abs err vs plain {err:.3e} (bar {FBANK_ATOL})")
+    check(got.shape == (wav.shape[0], pre.target_length, fc.num_mel_bins),
+          f"fbank on the eval batch: shape {tuple(got.shape)}")
+    check(err <= FBANK_ATOL, f"fbank on the eval batch: error {err}")
+
+
+def trainer_phase(profile: bool, step_clips_s: float) -> tuple[int, int]:
+    """psla-torch-train through ``cli.run`` at full width, then a resumed
+    run held to the uninterrupted one. Returns the fbank kernel's launches
+    in the first run and in its epoch 2 (train steps and validation)."""
+    smi = card()
+    root = tempfile.mkdtemp(prefix="psla_trainer_")
+    try:
+        t0 = time.perf_counter()
+        train_json, val_json, weights = write_corpus(root)
+        w = np.loadtxt(weights, delimiter=",")
+        print(f"corpus: {TRAIN_CLIPS} train and {VAL_CLIPS} val clips of {CLIP_SECONDS} s "
+              f"PCM16, 1-3 of {N_CLASS} classes each, written in "
+              f"{time.perf_counter() - t0:.2f} s; balanced-sampling weights "
+              f"{w.min():.1f}..{w.max():.1f}")
+        base = ["--preset", "audioset_full", "--data-train", train_json, "--data-val",
+                val_json, "--data-eval", val_json, "--label-csv",
+                assets.label_csv_for("audioset"), "--impretrain", "False", "--warmup",
+                "False", "--wa_start", "1", "--wa_end", "2", "--eff_b", str(EFF_B),
+                "--target_length", str(TARGET), "-b", str(STEP_BATCH), "--device", DEVICE]
+
+        # the decode rate of the train loader alone (primaries and mixup
+        # partners), on this machine's cores
+        loader = cli.make_loaders(cli.config_from_args(
+            cli.build_parser().parse_args(base + ["--exp-dir", root])))[0]
+        loader.set_epoch(1)
+        t0 = time.perf_counter()
+        n = sum(len(b["wav"]) + len(b["mix_wav"]) for b in loader)
+        dt = time.perf_counter() - t0
+        decoder = "native C++ (csrc/wavio.cc)" if native.available() else "numpy"
+        print(f"loader alone: {n} clips decoded in {dt:.3f} s, {n / dt:.1f} clips/s, "
+              f"decoder {decoder}, {loader.config.num_workers} workers, "
+              f"{os.cpu_count()} CPUs ({len(os.sched_getaffinity(0))} usable), wire "
+              f"{loader.config.wire} (host of the {smi})")
+
+        # the main path: two epochs, validation, weight averaging, protocol
+        exp = os.path.join(root, "exp")
+        extra = ["--profile-steps", "3", "--profile-start-step", "3"] if profile else []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fbank_cuda.LAUNCHES = 0
+        t0 = time.perf_counter()
+        full = run_cli(base + ["--exp-dir", exp, "--n-epochs", "2"] + extra)
+        torch.cuda.synchronize()
+        launches = fbank_cuda.LAUNCHES
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        spe, vb = full.steps_per_epoch, full.val_loader.batches_per_epoch()
+        eb = full.eval_loader.batches_per_epoch()
+        # train steps, validate each epoch and wa, then the protocol: best and
+        # wa on val and eval, each epoch checkpoint on eval
+        want = 2 * spe + 2 * vb + vb + 2 * (vb + eb) + 2 * eb
+        print(f"trainer run (cli.run, audioset_full: B{EFF_B}, {HEADS} heads, {N_CLASS} "
+              f"classes, T={TARGET}, batch {STEP_BATCH}, float32, mixup 0.5, SpecAugment "
+              f"48/192, bal, int16 wire, device_prefetch {full.config.device_prefetch}): "
+              f"{spe} steps an epoch, 2 epochs, {wall:.2f} s in all; fbank launches "
+              f"{launches} (train steps {2 * spe} + eval batches {want - 2 * spe})")
+        check(launches == want, f"{launches} fbank launches, want {want}")
+        per_epoch = full.epoch_launches(2)
+        print(f"fbank launches in epoch 2, its train steps and validation: {per_epoch} "
+              f"(train steps {spe} + val batches {vb})")
+        check(per_epoch == spe + vb, f"{per_epoch} fbank launches in epoch 2, "
+                                     f"want {spe + vb}")
+        eval_batch_fbank(full.eval_loader, full.config.preprocess_config())
+        result = np.loadtxt(os.path.join(exp, "result.csv"), delimiter=",")
+        check(result.shape == (2, 10) and bool(np.all(np.isfinite(result))),
+              f"result.csv {result}")
+        for name in ("predictions/target.csv", "predictions/predictions_2.csv",
+                     "predictions/ensemble_predictions.csv", "predictions/eval_target.csv",
+                     "predictions/predictions_eval_1.csv", "predictions/predictions_eval_2.csv",
+                     "models/epoch_1/checkpoint.pth", "models/epoch_2/checkpoint.pth",
+                     "models/best/checkpoint.pth", "models/wa/checkpoint.pth",
+                     "best_single_result.csv", "wa_result.csv", "ensemble_result.csv",
+                     "stats_2.pickle", "progress.json"):
+            check(os.path.exists(os.path.join(exp, name)), f"{name} not written")
+        secs = full.train_seconds[2]
+        m = full.meters
+        print(f"trainer epoch 2: {spe * STEP_BATCH} clips in {secs:.3f} s of train loop, "
+              f"{spe * STEP_BATCH / secs:.1f} clips/s (phase 6's bare step in this call: "
+              f"{step_clips_s:.1f} clips/s); epoch 1 {full.train_seconds[1]:.3f} s; meters "
+              f"per sample: data {m['per_sample_data_time'].avg * 1e3:.3f} ms, dnn "
+              f"{m['per_sample_dnn_time'].avg * 1e3:.3f} ms, total "
+              f"{m['per_sample_time'].avg * 1e3:.3f} ms; peak memory {peak / 2**30:.2f} GiB; "
+              f"result.csv epoch 2: mAP {result[1, 0]:.4f}, train loss {result[1, 5]:.6f}, "
+              f"valid loss {result[1, 6]:.6f} ({smi})")
+        if profile:
+            trace = os.path.join(exp, "profile", "trace_steps_3.json")
+            print(f"trainer epoch 2 profiled (steps 3-5): {trace_summary(trace)} ({smi})")
+
+        # the weight-averaged checkpoint serves
+        names = make_name_dict(assets.label_csv_for("audioset"))
+        model = create_model("efficientnet", label_dim=N_CLASS, eff_b=EFF_B, head_num=HEADS)
+        model.load_state_dict(load_variables(os.path.join(exp, "models", "wa")))
+        engine = InferenceEngine([model], PreprocessConfig(target_length=TARGET), names,
+                                 batch_size=4, device=DEVICE)
+        try:
+            wav = decode_wav(open(os.path.join(root, "val_0000.wav"), "rb").read())[0]
+            probs = engine.predict(wav, SR)
+        finally:
+            engine.close()
+        check(probs.shape == (N_CLASS,) and bool(np.all(np.isfinite(probs))),
+              "the wa checkpoint served non-finite probabilities")
+        print(f"wa checkpoint served: probabilities {probs.min():.4f}..{probs.max():.4f}")
+
+        # resume: one epoch, then the second with --resume
+        exp2 = os.path.join(root, "exp_resumed")
+        first = run_cli(base + ["--exp-dir", exp2, "--n-epochs", "1"])
+        second = run_cli(base + ["--exp-dir", exp2, "--n-epochs", "2", "--resume"])
+        for epoch, run in ((1, first), (2, second)):
+            check(np.array_equal(full.indices[epoch], run.indices[epoch]),
+                  f"epoch {epoch}: the resumed run sampled other clips")
+        steps = sorted(full.drawn)
+        resumed = {**first.drawn, **second.drawn}
+        check(sorted(resumed) == steps, f"steps {sorted(resumed)} against {steps}")
+        for step in steps:
+            check(torch.equal(full.drawn[step], resumed[step]), f"step {step}: other draws")
+        res2 = np.loadtxt(os.path.join(exp2, "result.csv"), delimiter=",")
+        diffs = np.abs(res2[1, 5:7] - result[1, 5:7])
+        print(f"resume: sampled indices of both epochs and the draws of steps "
+              f"{steps[0]}-{steps[-1]} equal to the uninterrupted run's; epoch 2 train loss "
+              f"{result[1, 5]:.6f} vs resumed {res2[1, 5]:.6f}, valid loss "
+              f"{result[1, 6]:.6f} vs resumed {res2[1, 6]:.6f}: max diff {diffs.max():.3e} "
+              f"(bar {TRAJECTORY_BAR}), bit-equal: {bool(np.all(diffs == 0))}")
+        check(diffs.max() <= TRAJECTORY_BAR, f"resumed losses off by {diffs.max()}")
+        return launches, per_epoch
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -1169,7 +1487,10 @@ def main(argv=None) -> int:
     record["launches"] = serving_phase(args.profile)
     records = [record] + mbconv_phase()
     torch.cuda.empty_cache()
-    record["launches_per_train_step"] = training_phase(args.profile)
+    record["launches_per_train_step"], step_clips_s = training_phase(args.profile)
+    torch.cuda.empty_cache()
+    record["launches_trainer_run"], record["launches_per_epoch"] = trainer_phase(
+        args.profile, step_clips_s)
     for r in records:
         check(r["launches"] > 0, f"kernel {r['name']} was not launched on its path")
     print(f"total {time.perf_counter() - t0:.1f} s")

@@ -130,22 +130,33 @@ def _label_dim(variables: Mapping) -> int:
     return int(np.shape(part["bias"])[-1])
 
 
+# the file a training checkpoint directory (models/{epoch_N,best,wa} of
+# train/loop.Trainer) holds: {"step", "model", "optimizer"}
+CHECKPOINT_FILE = "checkpoint.pth"
+
+
 def load_variables(path: str) -> dict[str, torch.Tensor]:
     """Checkpoint file -> state_dict in the reference layout.
 
     Takes a ``.pth``/``.pt`` state_dict (a reference checkpoint or one saved
-    from the port) or an ``.npz`` of JAX variables whose keys are the
-    ``/``-joined tree paths (``params/effnet/stem/conv/kernel``, ...).
+    from the port), a training checkpoint of the port's trainer (its
+    directory or its ``checkpoint.pth``; the model's state_dict is taken),
+    or an ``.npz`` of JAX variables whose keys are the ``/``-joined tree
+    paths (``params/effnet/stem/conv/kernel``, ...).
     """
     if os.path.isdir(path):
-        raise ValueError(
-            f"{path} is a directory (an orbax checkpoint?): the port reads "
-            "no orbax. Export the variables to .npz first: "
-            "np.savez(out, **{'/'.join(path): leaf}) over the flattened "
-            "{'params', 'batch_stats'} tree"
-        )
+        if not os.path.exists(os.path.join(path, CHECKPOINT_FILE)):
+            raise ValueError(
+                f"{path} is a directory without {CHECKPOINT_FILE} (an orbax "
+                "checkpoint?): the port reads no orbax. Export the variables to "
+                ".npz first: np.savez(out, **{'/'.join(path): leaf}) over the "
+                "flattened {'params', 'batch_stats'} tree"
+            )
+        path = os.path.join(path, CHECKPOINT_FILE)
     if path.endswith((".pth", ".pt")):
         sd = torch.load(path, map_location="cpu", weights_only=True)
+        if "model" in sd and "optimizer" in sd:  # a training checkpoint
+            sd = sd["model"]
         return normalize_state_dict(sd)
     if path.endswith(".npz"):
         with np.load(path) as z:

@@ -95,7 +95,7 @@ class BatchNorm(nn.Module):
 
     Train (``psla_tpu.models.layers.ReferenceBatchNorm``): normalize with
     the biased batch variance; fold the unbiased one (x n/(n-1),
-    n = B*H*W) into ``running_var`` with momentum 0.01. That is
+    n = B*H*W) into ``running_var`` with ``momentum`` (0.01 by default). That is
     ``F.batch_norm``'s own rule, and it is one call each way where flax's
     formula would be several passes and keep one more activation for
     backward. flax takes the batch variance as E[x^2] - E[x]^2 in float32
@@ -110,6 +110,7 @@ class BatchNorm(nn.Module):
     def __init__(self, num_features: int, eps: float = BN_EPS):
         super().__init__()
         self.eps = eps
+        self.momentum = BN_MOMENTUM  # create_model(bn_momentum=...) sets it
         self.replaying = False
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
@@ -123,7 +124,7 @@ class BatchNorm(nn.Module):
             if self.replaying:
                 mean, var = mean.clone(), var.clone()
             return F.batch_norm(x, mean, var, self.weight, self.bias, True,
-                                BN_MOMENTUM, self.eps)
+                                self.momentum, self.eps)
         mul = self.weight * torch.rsqrt(self.running_var + self.eps)
         if x.dtype == torch.float32:
             shift = self.bias - self.running_mean * mul

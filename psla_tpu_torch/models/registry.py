@@ -5,7 +5,7 @@ from __future__ import annotations
 import torch
 
 from psla_tpu_torch.models.effnet_att import EffNetAttention
-from psla_tpu_torch.models.layers import SameConv2d
+from psla_tpu_torch.models.layers import BatchNorm, SameConv2d
 from psla_tpu_torch.models.pooling import AttentionPool, MeanPool, MultiHeadAttentionPool
 
 MODEL_REGISTRY = ("efficientnet", "resnet", "mbnet")
@@ -20,6 +20,7 @@ def create_model(
     generator: torch.Generator | None = None,
     remat: bool = False,
     drop_connect_rate: float = 0.2,
+    bn_momentum: float = 0.99,
 ) -> EffNetAttention:
     """Build the module for a model name (run.py's --model choices), in
     eval mode.
@@ -27,7 +28,10 @@ def create_model(
     Weights are initialised as the JAX package initialises them (He-normal
     over fan-out for convs, the reference's uniform for the pooling heads),
     drawn from ``generator`` (default: seeded with 0). ``remat`` and
-    ``drop_connect_rate`` act in train mode (models/efficientnet.py).
+    ``drop_connect_rate`` act in train mode (models/efficientnet.py), and
+    so does ``bn_momentum``, the running statistics' momentum in flax's
+    convention (0.99 keeps 99% of the old statistics at each step, torch's
+    momentum 0.01).
     """
     if name in ("resnet", "mbnet"):
         raise NotImplementedError(
@@ -42,6 +46,8 @@ def create_model(
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     for mod in model.modules():
+        if isinstance(mod, BatchNorm):
+            mod.momentum = 1.0 - bn_momentum
         if isinstance(mod, (SameConv2d, MultiHeadAttentionPool, AttentionPool,
                             MeanPool)):
             mod.reset_parameters(generator)

@@ -20,10 +20,12 @@ API:
     (``Content-Type: audio/wav``) or JSON ``{"wav": [float...],
     "sample_rate": 16000}``. Query ``?top_k=N`` bounds the list.
 
-Threads: HTTP handler threads only parse requests and wait. One batcher
-thread owns the device: it drains up to ``batch_size`` queued clips per
-dispatch (waiting at most ``batch_window_ms`` for stragglers) and also runs
-the long clips, one at a time, so no two threads launch GPU work.
+Threads: a clip that fits the model window is queued for the batcher
+thread, which drains up to ``batch_size`` queued clips per dispatch
+(waiting at most ``batch_window_ms`` for stragglers). A longer clip runs
+its chunked pass in its own handler thread, outside the hot batch, so short
+requests never queue behind it. Both threads launch on the device's default
+stream, which orders their kernels; inference needs no lock.
 """
 
 from __future__ import annotations
@@ -134,6 +136,15 @@ class InferenceEngine:
         if sample_rate != want:
             wav = resample(wav, sample_rate, want)
         self._count("requests")
+        if wav.size > self.chunk_samples:
+            # long clip: exact chunked aggregation per member in this
+            # handler thread, then the ensemble mean
+            self._count("long_clips")
+            return np.mean(
+                [predict_long(m, wav, self.config, device=self.device)
+                 for m in self.members],
+                axis=0,
+            )
         if self._stop.is_set():
             raise ServerShuttingDown("server shutting down")
         req = _Request(wav)
@@ -180,23 +191,6 @@ class InferenceEngine:
 
     # ----------------------------------------------------------- batcher
 
-    def _is_long(self, req: _Request) -> bool:
-        return req.wav.size > self.chunk_samples
-
-    def _run_long(self, req: _Request):
-        """Exact chunked aggregation per member, then the ensemble mean."""
-        self._count("long_clips")
-        try:
-            req.probs = np.mean(
-                [predict_long(m, req.wav, self.config, device=self.device)
-                 for m in self.members],
-                axis=0,
-            )
-        except Exception as e:  # surface to the waiter, keep serving
-            req.error = e
-        finally:
-            req.event.set()
-
     def _run_batch(self, batch: list[_Request]):
         try:
             n = len(batch)
@@ -225,10 +219,7 @@ class InferenceEngine:
             item = self._queue.get()
             if item is None:
                 continue
-            if self._is_long(item):
-                self._run_long(item)
-                continue
-            batch, deferred = [item], []
+            batch = [item]
             deadline = time.monotonic() + self.batch_window_s
             while len(batch) < self.batch_size:
                 remaining = deadline - time.monotonic()
@@ -240,10 +231,8 @@ class InferenceEngine:
                     break
                 if nxt is None:
                     break
-                (deferred if self._is_long(nxt) else batch).append(nxt)
+                batch.append(nxt)
             self._run_batch(batch)
-            for req in deferred:
-                self._run_long(req)
 
 
 def make_server(engine: InferenceEngine, port: int = 8000, host="127.0.0.1"):

@@ -1,0 +1,23 @@
+"""Running statistics meter (reference: src/utilities/util.py:238-253; port
+of ``psla_tpu/train/meters.py``)."""
+
+from __future__ import annotations
+
+
+class AverageMeter:
+    """Tracks current value, running average, sum, and count."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.val = 0.0
+        self.avg = 0.0
+        self.sum = 0.0
+        self.count = 0
+
+    def update(self, val: float, n: int = 1):
+        self.val = val
+        self.sum += val * n
+        self.count += n
+        self.avg = self.sum / max(self.count, 1)

@@ -29,18 +29,15 @@ from psla_tpu_torch.frontend.pipeline import (
 from psla_tpu_torch.train.optim import bce_loss, ce_loss, per_sample_loss, set_lr
 from psla_tpu_torch.train.state import TrainState
 
-_BATCH_FIELDS = (
-    "wav", "wav_mean", "length", "labels",
-    "mix_wav", "mix_wav_mean", "mix_length", "mix_labels",
-)
-
 
 def _wav_batch(batch: Mapping[str, np.ndarray | torch.Tensor],
                device: torch.device) -> WavBatch:
     """Loader batch dict -> WavBatch on ``device``. int16 wire waveforms
     cross to the card as int16 and are dequantized there by x 2^-15: the
-    float32 samples of a PCM16 source, exactly."""
-    b = {k: torch.as_tensor(batch[k]).to(device) for k in _BATCH_FIELDS}
+    float32 samples of a PCM16 source, exactly. Tensors already on
+    ``device`` (``data/device_prefetch.py``'s) are taken as they are, with
+    no second copy."""
+    b = {k: torch.as_tensor(batch[k]).to(device) for k in WavBatch._fields}
     for k in ("wav", "mix_wav"):
         if b[k].dtype == torch.int16:
             b[k] = b[k].float() * 2.0 ** -15
@@ -52,6 +49,15 @@ class TrainDraws(NamedTuple):
     # [len(model.effnet.drop_blocks), B] bool drop-connect keep masks, or
     # None when no block drops
     keep: torch.Tensor | None
+
+
+def step_generator(seed: int, step: int, device: str | torch.device) -> torch.Generator:
+    """The generator of global step ``step``'s draws, on ``device``: the
+    counterpart of the JAX step's ``fold_in(rng, step)``. Its seed is a
+    fixed function of (seed, step), so a resumed run draws what the
+    uninterrupted run drew."""
+    words = np.random.SeedSequence([seed, 1, step]).generate_state(2)
+    return torch.Generator(device=device).manual_seed(int(words[0]) | int(words[1]) << 32)
 
 
 def draw_train(generator: torch.Generator, model: torch.nn.Module, batch: int,
