@@ -75,6 +75,28 @@ result line):
    meters, the decode rate and peak memory; ``--profile`` adds the card's
    idle share over epoch 2's steps and where the copies to the card ran.
 
+8. The eval side at full width (B2, 4 heads, 527 classes, T=1056,
+   float32) on phase 7's corpus writer: 100 tone clips of 10 s, eval batch
+   32 (4 batches, the last padded), 3 seeded members saved as ``.pth``
+   (one with ``module.`` prefixes and an ``_fc``). ``tools/ensemble.main``
+   stacked and ``--sequential``, in turns (stacked, sequential,
+   sequential, stacked): the fbank launches of each run (set to 0 just
+   before, read just after) must be the eval batches, and E times them;
+   the predictions within 1e-5 of each other, ``target.csv`` in datafile
+   order; then the two passes alone on models already on the card.
+   ``weight_average_eval``: the averaged state within 1e-6 of the float64
+   mean, a finite mAP. ``compute_norm_stats`` through the kernel within
+   2e-4 of the same through the plain fbank. ``psla-torch-predict`` on a
+   60 s clip within 1e-4 of ``predict_long`` with the plain fbank.
+   ``psla-torch-export`` of 2 members, loaded and run at batch 16 by a
+   subprocess that imports torch alone (no module of this repo, no CPU
+   device literal or tensor left in the moved program), within 1e-4 of
+   ``InferenceEngine.batch_probs`` through the kernel; both timed a call.
+   ``Trainer.init_state`` under ``impretrain`` from a seeded
+   ImageNet-layout B2 file named by ``PSLA_TPU_IMAGENET_CKPT``: the stem
+   is the RGB sum. ``--profile`` adds the device time by kernel of one
+   artifact call and one live call.
+
 The line before the last is a JSON object with one record per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -102,7 +124,13 @@ import torch
 
 from psla_tpu_torch import assets, cli
 from psla_tpu_torch.data import native
-from psla_tpu_torch.data.datafiles import load_label_csv, make_name_dict, save_datafile
+from psla_tpu_torch.data.datafiles import (
+    load_datafile,
+    load_label_csv,
+    make_name_dict,
+    save_datafile,
+)
+from psla_tpu_torch.data.loader import AudioLoader, LoaderConfig
 from psla_tpu_torch.data.sampler import gen_weight_file
 from psla_tpu_torch.data.wav import decode_wav, resample
 from psla_tpu_torch.frontend import fbank_cuda
@@ -119,7 +147,13 @@ from psla_tpu_torch.frontend.pipeline import PreprocessConfig
 from psla_tpu_torch.inference import _chunk_logmel, predict_long
 from psla_tpu_torch.models import create_model
 from psla_tpu_torch.models.convert import load_variables
+from psla_tpu_torch.models.pretrained import CKPT_ENV
 from psla_tpu_torch.ops import fused_mbconv, mbconv_vmem
+from psla_tpu_torch.tools import compute_stats as stats_tool
+from psla_tpu_torch.tools import ensemble as ensemble_tool
+from psla_tpu_torch.tools import export as export_tool
+from psla_tpu_torch.tools import predict as predict_tool
+from psla_tpu_torch.tools import weight_averaging as wa_tool
 from psla_tpu_torch.tools.serve import InferenceEngine, make_server
 from psla_tpu_torch.train.loop import Trainer
 from psla_tpu_torch.train.optim import psla_lr_schedule
@@ -1191,7 +1225,8 @@ TRAIN_CLIPS, VAL_CLIPS, CLIP_SECONDS = 300, 100, 10
 TRAJECTORY_BAR = 2e-2  # the JAX package's loss-trajectory bar (test_torch_twin.py:158)
 
 
-def write_corpus(root: str) -> tuple[str, str, str]:
+def write_corpus(root: str, train_clips: int = TRAIN_CLIPS, val_clips: int = VAL_CLIPS
+                 ) -> tuple[str, str, str]:
     """Seeded PCM16 clips, each holding tones of 1-3 AudioSet classes (the
     class's own frequency), their datafile JSONs and the balanced-sampling
     weights (``gen_weight_file``). Returns (train json, val json, weights)."""
@@ -1201,7 +1236,7 @@ def write_corpus(root: str) -> tuple[str, str, str]:
     rng = np.random.default_rng(9)
     t = np.arange(int(CLIP_SECONDS * SR)) / SR
     files = {}
-    for split, count in (("train", TRAIN_CLIPS), ("val", VAL_CLIPS)):
+    for split, count in (("train", train_clips), ("val", val_clips)):
         entries = []
         for i in range(count):
             classes = rng.choice(len(mids), size=rng.integers(1, 4), replace=False)
@@ -1467,6 +1502,337 @@ def trainer_phase(profile: bool, step_clips_s: float) -> tuple[int, int]:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ---------------------------------------------------------------- phase 8
+
+# The eval side at audioset_full width on phase 7's corpus writer: 100 tone
+# clips of 10 s, eval batch 32 (4 batches, the last with 4 clips and 28
+# padded rows), 3 seeded members.
+EVAL_CLIPS, EVAL_BATCH = 100, 32
+EVAL_SEEDS = (21, 22, 23)
+ENSEMBLE_ATOL = 1e-5  # stacked vs sequential predictions
+WA_ATOL = 1e-6  # the averaged state vs the float64 mean of the members
+NORM_ATOL = 2e-4  # compute_stats' mean and std, kernel vs plain fbank (the fbank bar)
+PREDICT_ATOL = 1e-4  # predict_long's bar
+PREDICT_SECONDS = 60
+EXPORT_MEMBERS = 2
+
+# Runs the exported artifact with torch alone (no module of this repo): a
+# copy of what a serving host does. Prints one JSON line.
+BARE_EXPORT = r"""
+import json, sys, time
+import numpy as np, torch
+from torch.export.passes import move_to_device_pass
+cuda = torch.device("cuda")
+program = move_to_device_pass(torch.export.load(sys.argv[1]), cuda)
+code = program.graph_module.code
+held = {**program.state_dict, **program.constants}
+module = program.module()
+x = np.load(sys.argv[2])
+def call():
+    args = [torch.from_numpy(x[k]).to(cuda) for k in ("wav", "mean", "lengths")]
+    with torch.no_grad():
+        return module(*args).cpu().numpy()
+tf32 = call()  # PyTorch's default flags: cuDNN convolutions in TF32
+np.save(sys.argv[3].replace(".npy", "_tf32.npy"), tf32)
+torch.backends.cudnn.allow_tf32 = False  # float32 convolutions, as the live engine's
+torch.backends.cuda.matmul.allow_tf32 = False
+for _ in range(2):
+    out = call()
+t0 = time.perf_counter()
+for _ in range(10):
+    out = call()
+ms = (time.perf_counter() - t0) / 10 * 1e3
+np.save(sys.argv[3], out)
+if sys.argv[4:] == ["--profile"]:  # device time by kernel over one call
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        call()
+    print(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=15))
+print(json.dumps({
+    "ms": ms, "cpu_literals": code.count("type='cpu'"),
+    "tensors_off_card": sorted(k for k, v in held.items() if v.device.type != "cuda"),
+    "repo_modules": sorted(m for m in sys.modules if m.split(".")[0].startswith("psla_tpu")),
+}))
+"""
+
+
+def imagenet_layout(sd: dict, seed: int = 31) -> dict:
+    """A port B2 state_dict laid out as efficientnet_pytorch's ImageNet
+    file: no pooling head, no ``effnet.`` prefix, a seeded 3-channel stem,
+    and an ``_fc`` classifier."""
+    rng = np.random.default_rng(seed)
+    out = {k[len("effnet."):]: v for k, v in sd.items() if k.startswith("effnet.")}
+    stem = out["_conv_stem.weight"]
+    out["_conv_stem.weight"] = torch.from_numpy(
+        rng.normal(0.0, 0.3, (stem.shape[0], 3, *stem.shape[2:])).astype(np.float32))
+    out["_fc.weight"] = torch.zeros(1000, out["_bn1.weight"].shape[0])
+    out["_fc.bias"] = torch.zeros(1000)
+    return out
+
+
+def timed_tool(fn):
+    """(result, seconds, fbank launches, peak memory) of one tool run: the
+    launch count set to 0 just before, read just after."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fbank_cuda.LAUNCHES = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, fbank_cuda.LAUNCHES, torch.cuda.max_memory_allocated()
+
+
+def eval_phase(profile: bool) -> tuple[int, dict]:
+    """The eval tools through their entry points at full width; returns the
+    fbank kernel's launches in them and the phase's numbers. ``profile``
+    adds the device time by kernel of one artifact call and one live
+    engine call."""
+    smi = card()
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="psla_eval_")
+    launches = 0
+    numbers = {}
+    try:
+        label_csv = assets.label_csv_for("audioset")
+        eval_json = write_corpus(root, train_clips=EVAL_CLIPS, val_clips=0)[0]
+        sds = [seeded_state_dict(s) for s in EVAL_SEEDS]
+        paths = []
+        for i, sd in enumerate(sds):
+            path = os.path.join(root, f"member_{i}.pth")
+            if i == 0:  # a reference checkpoint: DataParallel prefixes and an _fc
+                sd = {**{f"module.{k}": v for k, v in sd.items()},
+                      "module.effnet._fc.weight": torch.zeros(N_CLASS, 1408)}
+            torch.save(sd, path)
+            paths.append(path)
+        n_batches = -(-EVAL_CLIPS // EVAL_BATCH)
+        target = load_datafile(eval_json, label_csv).label_matrix()
+
+        # the checkpoint ensemble: stacked (default) and --sequential
+        width = ["--eff_b", str(EFF_B), "--target_length", str(TARGET)]
+        argv = paths + ["--data-eval", eval_json, "--label-csv", label_csv, "--preset",
+                        "audioset_full", "--batch-size", str(EVAL_BATCH), "--device",
+                        DEVICE] + width
+        preds, runs = {}, {}
+        # in turns, so drift on the card touches both alike
+        for k, (mode, extra) in enumerate((("stacked", []), ("sequential", ["--sequential"]),
+                                           ("sequential", ["--sequential"]),
+                                           ("stacked", []))):
+            out = os.path.join(root, f"{mode}_{k}")
+            rc, secs, n, peak = timed_tool(
+                lambda: ensemble_tool.main(argv + ["--out-dir", out] + extra))
+            check(rc == 0, f"ensemble {mode}: exit {rc}")
+            got = np.stack([np.loadtxt(os.path.join(out, f"predictions_{i}.csv"),
+                                       delimiter=",") for i in range(len(paths))])
+            got_target = np.loadtxt(os.path.join(out, "target.csv"), delimiter=",")
+            check(got.shape == (len(paths), EVAL_CLIPS, N_CLASS)
+                  and bool(np.all(np.isfinite(got))),
+                  f"ensemble {mode}: predictions {got.shape}")
+            check(np.array_equal(got_target, target), f"ensemble {mode}: target.csv order")
+            preds.setdefault(mode, got)
+            runs.setdefault(mode, []).append((secs, n, peak))
+            launches += n
+        err = float(np.abs(preds["stacked"] - preds["sequential"]).max())
+        maps = [ensemble_tool.scores(p.astype(np.float32), target)[0]
+                for p in preds["stacked"]]
+        for mode, rs in runs.items():
+            secs = [r[0] for r in rs]
+            print(f"ensemble {mode} (tools/ensemble.main, {len(paths)} B{EFF_B} members, "
+                  f"{EVAL_CLIPS} clips of {CLIP_SECONDS} s, batch {EVAL_BATCH}): "
+                  f"{np.mean(secs):.3f} s {[round(x, 3) for x in secs]}, "
+                  f"{EVAL_CLIPS / np.mean(secs):.1f} clips/s, fbank launches "
+                  f"{[r[1] for r in rs]}, peak memory "
+                  f"{max(r[2] for r in rs) / 2**30:.2f} GiB ({smi})")
+            numbers[f"ensemble_{mode}_clips_s"] = EVAL_CLIPS / np.mean(secs)
+            want = n_batches * (1 if mode == "stacked" else len(paths))
+            check(all(r[1] == want for r in rs),
+                  f"{mode} ensemble: fbank launches {[r[1] for r in rs]}, want {want}")
+        print(f"ensemble: stacked vs sequential predictions max abs {err:.3e} (bar "
+              f"{ENSEMBLE_ATOL}); members' mAP {[round(m, 4) for m in maps]}")
+        check(err <= ENSEMBLE_ATOL, f"stacked vs sequential: {err}")
+        check(all(np.isfinite(maps)), f"members' mAP {maps}")
+
+        # the passes alone, models built and on the card: one stacked pass
+        # against one pass a member
+        pre = PreprocessConfig(target_length=TARGET).eval_variant()
+        loader = AudioLoader(load_datafile(eval_json, label_csv),
+                             LoaderConfig(batch_size=EVAL_BATCH,
+                                          buffer_samples=pre.fbank.buffer_length(TARGET),
+                                          drop_remainder=False), shuffle=False)
+        models = [member(sd, torch.float32).to(DEVICE) for sd in sds]
+        passes = {"stacked": [], "sequential": []}
+        for mode in ("stacked", "sequential", "sequential", "stacked"):
+            if mode == "stacked":
+                fn = lambda: ensemble_tool.predict_stacked(  # noqa: E731
+                    models, loader, pre, DEVICE)
+            else:
+                fn = lambda: [ensemble_tool.predict(m, loader, pre, DEVICE)  # noqa: E731
+                              for m in models]
+            _, secs, n, _ = timed_tool(fn)
+            passes[mode].append(secs)
+            launches += n
+            want = n_batches * (1 if mode == "stacked" else len(models))
+            check(n == want, f"{mode} passes: {n} fbank launches, want {want}")
+        for mode, secs in passes.items():
+            numbers[f"ensemble_{mode}_pass_clips_s"] = EVAL_CLIPS / np.mean(secs)
+            print(f"ensemble {mode} passes alone ({len(models)} members on the card): "
+                  f"{np.mean(secs):.3f} s {[round(x, 3) for x in secs]}, "
+                  f"{EVAL_CLIPS / np.mean(secs):.1f} clips/s ({smi})")
+        del models
+
+        # weight averaging of the three members, then its eval
+        res, secs, n, _ = timed_tool(lambda: wa_tool.weight_average_eval(
+            paths, loader, pre, n_class=N_CLASS, eff_b=EFF_B, device=DEVICE))
+        launches += n
+        plain = [load_variables(p) for p in paths]
+        wa_err = max(float(np.abs(res["state_dict"][k].double().numpy() - np.mean(
+            [sd[k].double().numpy() for sd in plain], axis=0)).max()) for k in plain[0])
+        print(f"weight averaging of {len(paths)} members: max abs vs the float64 mean "
+              f"{wa_err:.3e} (bar {WA_ATOL}); eval {secs:.3f} s, mAP {res['mAP']:.4f}, "
+              f"fbank launches {n}")
+        check(wa_err <= WA_ATOL, f"averaged state off the float64 mean by {wa_err}")
+        check(bool(np.isfinite(res["mAP"])), f"weight-averaged mAP {res['mAP']}")
+        check(n == n_batches, f"weight averaging: {n} fbank launches, want {n_batches}")
+
+        # compute_stats through the kernel, against the plain fbank on the card
+        (mean, std), secs, n, _ = timed_tool(lambda: stats_tool.compute_norm_stats(
+            eval_json, label_csv, target_length=TARGET, device=DEVICE))
+        launches += n
+        pmean, pstd = stats_tool.compute_norm_stats(eval_json, label_csv, target_length=TARGET,
+                                                   fbank_method="fft64", device=DEVICE)
+        stats_err = max(abs(mean - pmean), abs(std - pstd))
+        numbers["compute_stats_clips_s"] = EVAL_CLIPS / secs
+        print(f"compute_stats: mean {mean:.6f} std {std:.6f} (plain fbank {pmean:.6f} "
+              f"{pstd:.6f}, max abs {stats_err:.3e}, bar {NORM_ATOL}); {secs:.3f} s, "
+              f"{EVAL_CLIPS / secs:.1f} clips/s, fbank launches {n} ({smi})")
+        check(stats_err <= NORM_ATOL, f"compute_stats kernel vs plain: {stats_err}")
+        check(n == -(-EVAL_CLIPS // 32), f"compute_stats: {n} fbank launches")
+
+        # psla-torch-predict on a 60 s clip
+        clip_path = os.path.join(root, "long60s.wav")
+        with open(clip_path, "wb") as f:
+            f.write(wav_bytes(tones(np.random.default_rng(13), PREDICT_SECONDS * SR), SR))
+        got, secs, n, _ = timed_tool(lambda: predict_tool.run(
+            [clip_path, "--ckpt", paths[1], "--label-csv", label_csv, "--device", DEVICE]
+            + width))
+        launches += n
+        wav = decode_wav(open(clip_path, "rb").read())[0]
+        model = member(sds[1], torch.float32).to(DEVICE)
+        want = predict_long(model, wav, dataclasses.replace(
+            PreprocessConfig(target_length=TARGET), fbank_method="fft64"), device=DEVICE)
+        t0 = time.perf_counter()
+        predict_long(model, wav, PreprocessConfig(target_length=TARGET), device=DEVICE)
+        long_s = time.perf_counter() - t0
+        pred_err = float(np.abs(got[clip_path] - want).max())
+        chunk = PreprocessConfig(target_length=TARGET).fbank.buffer_length(TARGET)
+        chunks = -(-wav.size // chunk)
+        numbers["predict_s_per_60s"] = secs
+        print(f"psla-torch-predict, {PREDICT_SECONDS} s clip ({chunks} chunks): {secs:.3f} s "
+              f"through main (model load included), predict_long alone {long_s:.3f} s; "
+              f"max abs vs the plain fbank {pred_err:.3e} (bar {PREDICT_ATOL}); fbank "
+              f"launches {n} ({smi})")
+        check(pred_err <= PREDICT_ATOL, f"predict vs plain predict_long: {pred_err}")
+        check(n == -(-chunks // 8), f"predict: {n} fbank launches")
+
+        # the torch.export artifact of a 2-member ensemble, loaded by torch alone
+        art = os.path.join(root, "export")
+        ckpts = [a for p in paths[:EXPORT_MEMBERS] for a in ("--ckpt", p)]
+        rc, export_s, _, _ = timed_tool(lambda: export_tool.main(
+            ckpts + ["--out", art, "--device", DEVICE] + width))
+        check(rc == 0, f"export: exit {rc}")
+        rng = np.random.default_rng(17)
+        x = np.stack([tones(rng, chunk) for _ in range(BATCH)])
+        lengths = np.full(BATCH, chunk, np.int32)
+        lengths[1], lengths[2] = chunk // 3, 5 * SR
+        for i in (1, 2):
+            x[i, lengths[i]:] = 0.0
+        xmean = (x.sum(axis=1) / lengths).astype(np.float32)
+        np.savez(os.path.join(root, "in.npz"), wav=x, mean=xmean, lengths=lengths)
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", BARE_EXPORT, os.path.join(art, export_tool.ARTIFACT),
+             os.path.join(root, "in.npz"), os.path.join(root, "out.npy")]
+            + (["--profile"] if profile else []),
+            cwd=root, env=env, capture_output=True, text=True, timeout=600)
+        bare_s = time.perf_counter() - t0
+        check(proc.returncode == 0, f"bare torch load: {proc.stdout[-2000:]} "
+                                    f"{proc.stderr[-4000:]}")
+        bare = json.loads(proc.stdout.strip().splitlines()[-1])
+        names = make_name_dict(label_csv)
+        fbank_cuda.LAUNCHES = 0
+        engine = InferenceEngine([member(sd, torch.float32) for sd in sds[:EXPORT_MEMBERS]],
+                                 PreprocessConfig(target_length=TARGET), names,
+                                 batch_size=BATCH, device=DEVICE)
+        try:
+            live = engine.batch_probs(x, xmean, lengths)
+            for _ in range(2):
+                engine.batch_probs(x, xmean, lengths)
+            t0 = time.perf_counter()
+            for _ in range(10):
+                engine.batch_probs(x, xmean, lengths)
+            live_ms = (time.perf_counter() - t0) / 10 * 1e3
+            if profile:
+                print("\n".join(proc.stdout.strip().splitlines()[:-1]))
+                profile_dispatch(engine)
+        finally:
+            engine.close()
+        launches += fbank_cuda.LAUNCHES
+        exp_err = float(np.abs(np.load(os.path.join(root, "out.npy")) - live).max())
+        tf32_err = float(np.abs(np.load(os.path.join(root, "out_tf32.npy")) - live).max())
+        numbers.update(export_ms=bare["ms"], live_ms=live_ms)
+        print(f"export ({EXPORT_MEMBERS} B{EFF_B} members, symbolic batch, traced on "
+              f"{DEVICE}): {export_s:.2f} s, "
+              f"{os.path.getsize(os.path.join(art, export_tool.ARTIFACT)) / 1e6:.1f} MB; "
+              f"loaded by torch alone in a subprocess ({bare_s:.2f} s; modules of this repo "
+              f"imported: {bare['repo_modules']}; cpu device literals in the graph: "
+              f"{bare['cpu_literals']}; tensors off the card: {bare['tensors_off_card']}); "
+              f"batch {BATCH}: artifact ('gemm' fbank) {bare['ms']:.2f} ms a call, live "
+              f"engine (fbank kernel) {live_ms:.2f} ms a call (host clock, waveforms in, "
+              f"probabilities out); max abs {exp_err:.3e} (bar {SERVE_ATOL}), with cuDNN's "
+              f"default TF32 convolutions {tf32_err:.3e} (not held to the bar) ({smi})")
+        check(not bare["repo_modules"],
+              f"the artifact's loader imported {bare['repo_modules']}")
+        check(bare["cpu_literals"] == 0 and not bare["tensors_off_card"],
+              f"the moved program keeps the CPU: {bare['cpu_literals']} literals, "
+              f"{bare['tensors_off_card']}")
+        check(exp_err <= SERVE_ATOL, f"artifact vs live engine: {exp_err}")
+
+        # impretrain: the ImageNet backbone through the environment variable
+        imagenet = imagenet_layout(sds[2])
+        im_path = os.path.join(root, "efficientnet-b2-seeded.pth")
+        torch.save(imagenet, im_path)
+        before = os.environ.get(CKPT_ENV)
+        os.environ[CKPT_ENV] = im_path
+        try:
+            cfg = cli.config_from_args(cli.build_parser().parse_args(
+                ["--preset", "audioset_full", "--data-train", eval_json, "--data-val",
+                 eval_json, "--label-csv", label_csv, "--exp-dir",
+                 os.path.join(root, "imagenet"), "--device", DEVICE] + width))
+            check(cfg.impretrain, "impretrain is not the preset's default")
+            train_loader, val_loader, _ = cli.make_loaders(cfg)
+            state = Trainer(cfg, train_loader, val_loader, device=DEVICE).init_state()
+        finally:
+            if before is None:
+                os.environ.pop(CKPT_ENV)
+            else:
+                os.environ[CKPT_ENV] = before
+        got = {k: v.cpu() for k, v in state.model.state_dict().items()}
+        stem = imagenet["_conv_stem.weight"].sum(1, keepdim=True)
+        stem_err = float((got["effnet._conv_stem.weight"] - stem).abs().max())
+        print(f"impretrain: Trainer.init_state on {DEVICE} from {CKPT_ENV}: stem "
+              f"{tuple(got['effnet._conv_stem.weight'].shape)}, max abs vs the RGB sum "
+              f"{stem_err:.3e}")
+        check(stem_err <= 1e-6 * float(stem.abs().max()), f"stem off the RGB sum: {stem_err}")
+        check(torch.equal(got["effnet._bn0.running_mean"], imagenet["_bn0.running_mean"]),
+              "_bn0's running mean is not the file's")
+        numbers["phase_s"] = time.perf_counter() - t_phase
+        print(f"phase 8: {numbers['phase_s']:.1f} s; fbank launches in its tool runs "
+              f"{launches}")
+        return launches, numbers
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -1491,6 +1857,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     record["launches_trainer_run"], record["launches_per_epoch"] = trainer_phase(
         args.profile, step_clips_s)
+    torch.cuda.empty_cache()
+    record["launches_eval_side"], _ = eval_phase(args.profile)
     for r in records:
         check(r["launches"] > 0, f"kernel {r['name']} was not launched on its path")
     print(f"total {time.perf_counter() - t0:.1f} s")

@@ -8,8 +8,12 @@ keep its layouts (waveforms ``[B, N]``, log-mel ``[B, T, F]``, probabilities
 
 Ported so far: the serving path (``tools/serve.py``) with its frontend,
 EfficientNet-attention models, long-clip inference, and the hand-written
-CUDA fbank kernel (``csrc/fbank.cu``). Entry points run on ``cuda`` unless
-the caller passes ``device="cpu"``.
+CUDA kernels (``csrc/``); the training step and the trainer
+(``psla-torch-train``); and the eval side (``tools/``: predict, the
+checkpoint ensemble, weight averaging, normalization statistics,
+checkpoint conversion, the ``torch.export`` artifact, and ImageNet
+initialisation from a local file, ``models/pretrained.py``). Entry points
+run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"

@@ -144,8 +144,6 @@ def unported(cfg: ExperimentConfig):
         (cfg.ensemble_seeds > 1, "--ensemble-seeds over 1", "item 7 (multi-seed ensemble)"),
         (cfg.act_compress != "none", "--act_compress", "item 9 (int8 activation compression)"),
         (cfg.dtype == "bfloat16", "--dtype bfloat16", "item 10 (bfloat16 training)"),
-        (cfg.impretrain and not cfg.pretrained_ckpt, "impretrain=True without "
-         "--pretrained_ckpt (the ImageNet backbone)", "item 5 (models/pretrained.py)"),
     )
     for refused, what, item in later:
         if refused:

@@ -41,6 +41,17 @@ def _chunk_logmel(wav: torch.Tensor, wav_mean: torch.Tensor,
     return logmel
 
 
+def ensemble_probs(members, wav: torch.Tensor, wav_mean: torch.Tensor,
+                   lengths: torch.Tensor, config: PreprocessConfig) -> torch.Tensor:
+    """[B, chunk_samples] clips -> the members' mean probabilities [B,
+    n_class] (float32). The fbank runs once for all members."""
+    logmel = _chunk_logmel(wav, wav_mean, lengths, config)
+    acc = members[0](logmel).float()
+    for m in members[1:]:
+        acc = acc + m(logmel).float()
+    return acc / len(members)
+
+
 def aggregate_stats(stats: dict) -> torch.Tensor:
     """Combine per-chunk pooling stats -> [n_class] probabilities.
 

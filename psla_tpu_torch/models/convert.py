@@ -12,7 +12,10 @@ names plus the per-head pooling convs), the layout
     ``psla_tpu.models.convert.convert_effnet_attention``): HWIO kernels to
     OIHW, depthwise ``[k,k,1,C]`` to ``[C,1,k,k]``, the fused DenseGeneral
     head kernel ``[C, H, 2, n_out]`` to per-head ``att.{h}`` / ``cla.{h}``
-    convs, BN scale/bias/mean/var to weight/bias/running_mean/running_var.
+    convs, BN scale/bias/mean/var to weight/bias/running_mean/running_var;
+  * ``convert_imagenet_backbone`` puts an ImageNet efficientnet_pytorch
+    backbone (3-channel stem, ``_fc`` classifier, no pooling head) over a
+    fresh model's state_dict, the ``impretrain=True`` path.
 """
 
 from __future__ import annotations
@@ -111,6 +114,65 @@ def from_jax_variables(
     if n_out != label_dim:
         raise ValueError(f"head has {n_out} classes, expected {label_dim}")
     return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+
+
+STEM = "effnet._conv_stem.weight"
+
+
+def convert_imagenet_backbone(
+    state_dict: Mapping[str, Any],
+    init_state_dict: Mapping[str, torch.Tensor],
+    stem: str = "sum",
+) -> dict[str, torch.Tensor]:
+    """ImageNet efficientnet_pytorch weights -> a state_dict of EffNetAttention
+    (the counterpart of ``psla_tpu.models.convert.convert_imagenet_backbone``).
+
+    Raw efficientnet_pytorch keys (``_conv_stem.weight``, ``_bn0.*``,
+    ``_blocks.{i}.*``, ``_conv_head.weight``, ``_bn1.*``) are the port's
+    backbone keys without their ``effnet.`` prefix, which is added;
+    ``_fc`` is dropped. ``stem='sum'`` sums the RGB stem filters into one
+    channel (a grayscale input then gives the stem response of the
+    RGB-replicated image); ``stem='random'`` keeps the fresh stem, as
+    efficientnet_pytorch's ``in_channels=1`` does. The pooling head comes
+    from ``init_state_dict`` (a fresh model's).
+    """
+    if stem not in ("sum", "random"):
+        raise ValueError(f"unknown stem strategy {stem!r}")
+    sd = normalize_state_dict(state_dict)
+    if not any(k.startswith("effnet.") for k in sd):
+        sd = {f"effnet.{k}": v for k, v in sd.items()}
+    if STEM in sd and sd[STEM].shape[1] == 3:
+        if stem == "sum":
+            sd[STEM] = sd[STEM].sum(dim=1, keepdim=True)
+        else:
+            sd[STEM] = init_state_dict[STEM]
+    return _merge_into_init(init_state_dict,
+                            {k: v for k, v in sd.items() if k.startswith("effnet.")})
+
+
+def _merge_into_init(init_state_dict: Mapping[str, torch.Tensor],
+                     backbone: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """The fresh state_dict with every backbone entry replaced by the file's
+    (anything else, the pooling head, stays fresh). A backbone entry the
+    file lacks, or holds at another shape, raises: nothing of the backbone
+    keeps its random initialisation."""
+    out = dict(init_state_dict)
+    missing, wrong = [], []
+    for k, v in init_state_dict.items():
+        if not k.startswith("effnet."):
+            continue
+        if k not in backbone:
+            missing.append(k)
+        elif tuple(backbone[k].shape) != tuple(v.shape):
+            wrong.append(f"{k}: {tuple(backbone[k].shape)} for {tuple(v.shape)}")
+        else:
+            out[k] = backbone[k].to(v.dtype)
+    if missing or wrong:
+        raise ValueError(
+            "the ImageNet checkpoint does not fit this backbone (another "
+            f"EfficientNet size?): {len(missing)} entries missing {missing[:4]}, "
+            f"{len(wrong)} of other shapes {wrong[:4]}")
+    return out
 
 
 def _unflatten(flat: Mapping[str, np.ndarray]) -> dict:

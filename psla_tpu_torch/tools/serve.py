@@ -41,7 +41,7 @@ import numpy as np
 import torch
 
 from psla_tpu_torch.data.wav import decode_wav, resample
-from psla_tpu_torch.inference import _chunk_logmel, predict_long
+from psla_tpu_torch.inference import ensemble_probs, predict_long
 
 __all__ = ["InferenceEngine", "make_server", "build_parser", "engine_from_args",
            "main", "MAX_BODY_BYTES", "ServerShuttingDown"]
@@ -116,14 +116,11 @@ class InferenceEngine:
         """One dispatch: [b, chunk_samples] clips -> [b, n_class] mean of
         the members' probabilities. The fbank runs once for all members."""
         to = dict(device=self.device, non_blocking=True)
-        logmel = _chunk_logmel(
-            torch.from_numpy(wav).to(**to), torch.from_numpy(wav_mean).to(**to),
-            torch.from_numpy(lengths).to(**to), self.config,
-        )
-        acc = self.members[0](logmel).float()
-        for m in self.members[1:]:
-            acc = acc + m(logmel).float()
-        return (acc / len(self.members)).cpu().numpy()
+        return ensemble_probs(
+            self.members, torch.from_numpy(wav).to(**to),
+            torch.from_numpy(wav_mean).to(**to), torch.from_numpy(lengths).to(**to),
+            self.config,
+        ).cpu().numpy()
 
     def _count(self, key: str, n: int = 1):
         with self._counter_lock:

@@ -42,6 +42,10 @@ from psla_tpu_torch.data.loader import AudioLoader
 from psla_tpu_torch.metrics import calculate_stats, d_prime
 from psla_tpu_torch.models import create_model
 from psla_tpu_torch.models.convert import CHECKPOINT_FILE, load_variables
+from psla_tpu_torch.models.pretrained import (
+    convert_imagenet_state_dict,
+    resolve_imagenet_checkpoint,
+)
 from psla_tpu_torch.train.meters import AverageMeter
 from psla_tpu_torch.train.optim import psla_lr_schedule
 from psla_tpu_torch.train.state import TrainState, create_train_state
@@ -151,17 +155,23 @@ class Trainer:
         )
 
     def init_state(self) -> TrainState:
-        """A fresh initialisation, or ``pretrained_ckpt``: a full-model
-        ``.pth`` in the reference key layout (or anything
-        ``models.convert.load_variables`` reads)."""
+        """A fresh initialisation overlaid with ``pretrained_ckpt`` or, under
+        ``impretrain``, the ImageNet backbone that
+        ``models.pretrained.resolve_imagenet_checkpoint`` finds on disk (it
+        raises when there is none). The file is a full model in the
+        reference key layout (anything ``models.convert.load_variables``
+        reads), or a backbone without a pooling head, such as an ImageNet
+        efficientnet_pytorch checkpoint: then the head stays fresh."""
+        cfg = self.config
         model = self._new_model()
-        if self.config.pretrained_ckpt:
-            sd = load_variables(self.config.pretrained_ckpt)
+        path = cfg.pretrained_ckpt
+        if not path and cfg.impretrain:
+            path = resolve_imagenet_checkpoint(cfg.model, cfg.eff_b)
+            print(f"loading ImageNet pretrained backbone: {path}")
+        if path:
+            sd = load_variables(path)
             if not any(k.startswith("attention.") for k in sd):
-                raise NotImplementedError(
-                    f"{self.config.pretrained_ckpt} holds no pooling head (a backbone-"
-                    "only ImageNet checkpoint?): not ported yet, ROADMAP.md, Queue 1, "
-                    "item 5 (models/pretrained.py)")
+                sd = convert_imagenet_state_dict(sd, cfg.model, model.state_dict())
             model.load_state_dict(sd)
         return create_train_state(model, self.schedule, step=0, device=self.device)
 

@@ -33,17 +33,24 @@ class TrainState:
         return next(self.model.parameters()).device
 
 
-def create_train_state(model: torch.nn.Module, schedule: Callable[[int], float],
-                       step: int = 0, device: str | torch.device = "cuda") -> TrainState:
-    """Moves ``model`` to ``device`` and gives it a fresh Adam. A float32
-    model on the card switches TF32 off for cuDNN and cuBLAS (process-wide,
-    as ``tools/serve.InferenceEngine`` does), so its convolutions and
-    products are the float32 ones the JAX package computes."""
+def place_model(model: torch.nn.Module, device: str | torch.device) -> torch.nn.Module:
+    """Moves ``model`` to ``device``. A float32 model on the card switches
+    TF32 off for cuDNN and cuBLAS (process-wide, as
+    ``tools/serve.InferenceEngine`` does), so its convolutions and products
+    are the float32 ones the JAX package computes."""
     device = torch.device(device)
     model.to(device)
     if device.type == "cuda" and getattr(model, "dtype", torch.float32) == torch.float32:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+    return model
+
+
+def create_train_state(model: torch.nn.Module, schedule: Callable[[int], float],
+                       step: int = 0, device: str | torch.device = "cuda") -> TrainState:
+    """Moves ``model`` to ``device`` (``place_model``) and gives it a fresh
+    Adam."""
+    place_model(model, device)
     return TrainState(step=step, model=model,
                       optimizer=make_optimizer(model.parameters()),
                       schedule=schedule)

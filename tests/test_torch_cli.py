@@ -100,7 +100,6 @@ def test_resume_reproduces_the_uninterrupted_run_exactly(corpus, tmp_path):
     (("--ensemble-seeds", "3"), "item 7"),
     (("--act-compress", "qdq"), "item 9"),
     (("--dtype", "bfloat16"), "item 10"),
-    (("--impretrain", "True"), "item 5"),
 ])
 def test_flags_of_later_items_raise(extra, match):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md, Queue 1, {match}"):

@@ -322,9 +322,19 @@ def test_validate_ensemble_replay_is_idempotent(tmp_path):
 
 
 def test_backbone_only_checkpoint_is_refused(corpus, tmp_path):
+    """A backbone-only checkpoint that fits loads as the backbone with the
+    fresh pooling head (models/convert.convert_imagenet_backbone, the
+    ImageNet path); one that lacks part of the backbone is refused, so no
+    backbone entry keeps its random initialisation."""
     sd = torch.load(corpus[2], weights_only=True)
     path = str(tmp_path / "backbone.pth")
     torch.save({k: v for k, v in sd.items() if not k.startswith("attention.")}, path)
     t = port_trainer(corpus, str(tmp_path / "bb"), pretrained_ckpt=path)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        t.init_state()
+    got = t.init_state().model.state_dict()
+    fresh = t._new_model().state_dict()
+    for k, v in got.items():
+        assert torch.equal(v, fresh[k] if k.startswith("attention.") else sd[k]), k
+    torch.save({k: v for k, v in sd.items()
+                if not k.startswith(("attention.", "effnet._blocks.3."))}, path)
+    with pytest.raises(ValueError, match="does not fit"):
+        port_trainer(corpus, str(tmp_path / "bb2"), pretrained_ckpt=path).init_state()
