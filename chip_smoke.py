@@ -96,6 +96,29 @@ result line):
    ImageNet-layout B2 file named by ``PSLA_TPU_IMAGENET_CKPT``: the stem
    is the RGB sum. ``--profile`` adds the device time by kernel of one
    artifact call and one live call.
+9. The FSD50K recipe and the tools on the card (the fsd50k preset: B2, 4
+   heads, 200 classes, T=3000, batch 24, float32 with TF32 off; mixup 0.5,
+   SpecAugment 48/192). (a) ``prep_fsd`` on a seeded FSD50K-layout root
+   (the ground-truth CSVs and 96 dev plus 48 eval clips of 0.3-30 s at
+   44.1 kHz): the native resampler must take every file, three of its
+   outputs within 1 PCM16 step of ``wav.resample``, the datafiles the
+   CSVs' rows and the weight file the sampler's weights. (b) The fbank
+   kernel on the first eval batch ([24, 480240] with the clips' ragged
+   lengths -> 3000 frames): one launch, counted, within 2e-4 of its plain
+   version, timed beside it, the library yardsticks and its bound. (c) One
+   fsd50k train step through the kernel held to the plain fbank's at
+   phase 6's bars, then 2 warm-up and 10 timed steps. (d)
+   ``psla-torch-train --preset fsd50k`` (``cli.run``) for 1 epoch on (a)'s
+   datafiles: the fbank launches must be the train steps plus every eval
+   batch, the CSVs finite. (e) ``smoke.run`` and ``smoke.run_protocol`` on
+   the card (B0, T=64): artifacts, labels added, launches counted. (f)
+   ``verify_release`` on a ``file://`` URL of a seeded B2 ``.pth`` of 200
+   classes (``module.`` prefixes, an ``_fc``): every stage ok against the
+   mAP ``tools/ensemble`` gives the file, the probabilities within 1e-4 of
+   the plain ``predict_long``. (g) ``flagship.run`` at audioset_full width
+   (B2, T=1056, batch 128; 512 train and 128 val clips, 3 epochs), killed
+   at epoch 2's first print step and resumed: every epoch completed, the
+   summary beside phase 6's bare step.
 
 The line before the last is a JSON object with one record per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -105,6 +128,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import csv
 import dataclasses
 import json
 import os
@@ -123,6 +147,7 @@ import numpy as np
 import torch
 
 from psla_tpu_torch import assets, cli
+from psla_tpu_torch.config import from_preset
 from psla_tpu_torch.data import native
 from psla_tpu_torch.data.datafiles import (
     load_datafile,
@@ -131,8 +156,8 @@ from psla_tpu_torch.data.datafiles import (
     save_datafile,
 )
 from psla_tpu_torch.data.loader import AudioLoader, LoaderConfig
-from psla_tpu_torch.data.sampler import gen_weight_file
-from psla_tpu_torch.data.wav import decode_wav, resample
+from psla_tpu_torch.data.sampler import compute_sample_weights, gen_weight_file
+from psla_tpu_torch.data.wav import decode_wav, read_wav, resample, write_wav
 from psla_tpu_torch.frontend import fbank_cuda
 from psla_tpu_torch import ops
 from psla_tpu_torch.frontend.augment import normalize
@@ -152,6 +177,7 @@ from psla_tpu_torch.ops import fused_mbconv, mbconv_vmem
 from psla_tpu_torch.tools import compute_stats as stats_tool
 from psla_tpu_torch.tools import ensemble as ensemble_tool
 from psla_tpu_torch.tools import export as export_tool
+from psla_tpu_torch.tools import flagship, prep_fsd, smoke, verify_release
 from psla_tpu_torch.tools import predict as predict_tool
 from psla_tpu_torch.tools import weight_averaging as wa_tool
 from psla_tpu_torch.tools.serve import InferenceEngine, make_server
@@ -276,7 +302,7 @@ def ragged_batch(cfg: FbankConfig, seed: int = 0):
     return wav, lengths
 
 
-def fbank_bound(cfg: FbankConfig, lengths: np.ndarray, n: int) -> dict:
+def fbank_bound(cfg: FbankConfig, lengths: np.ndarray, n: int, target: int = TARGET) -> dict:
     """Least time for this batch's log-mel: the larger of its operations
     over the float32 peak and its bytes over the memory rate.
 
@@ -289,14 +315,14 @@ def fbank_bound(cfg: FbankConfig, lengths: np.ndarray, n: int) -> dict:
     non-zeros. ``dense_flop`` is what the TPU kernel's formulation (and
     this kernel's before its redesign) does for the same frames: frames @ A
     and power @ banks^T as dense products."""
-    valid = [min(cfg.num_frames(min(int(x), n)), TARGET) for x in lengths]
+    valid = [min(cfg.num_frames(min(int(x), n)), target) for x in lengths]
     frames = sum(valid)
     samples = sum(cfg.buffer_length(v) for v in valid if v)
     nfft, nb = cfg.padded_window_size, cfg.num_spectrum_bins
     nm, ws = cfg.num_mel_bins, cfg.window_size
     nnz = int(np.count_nonzero(mel_banks(cfg)))
     flop = frames * (5 * ws + 2.5 * nfft * float(np.log2(nfft)) + 3 * nb + 2 * nnz + 2 * nm)
-    nbytes = 4 * (samples + len(lengths) + len(lengths) * TARGET * nm + ws + nnz)
+    nbytes = 4 * (samples + len(lengths) + len(lengths) * target * nm + ws + nnz)
     t_ops, t_bytes = flop / PEAK_F32_FLOP_S, nbytes / PEAK_BYTES_S
     return {"ms": max(t_ops, t_bytes) * 1e3,
             "by": "operations" if t_ops >= t_bytes else "bytes",
@@ -432,7 +458,7 @@ def train_batch_phase(cfg: FbankConfig):
 # ---------------------------------------------------------------- phase 4
 
 
-def seeded_state_dict(seed: int) -> dict[str, torch.Tensor]:
+def seeded_state_dict(seed: int, n_class: int = N_CLASS) -> dict[str, torch.Tensor]:
     """Random B2 weights drawn with numpy from a seed: BatchNorm statistics
     mean ~N(0, 0.1), var ~U(0.5, 1.5), so eval outputs are not flat; pooling
     heads at the reference's U(-a, a), a = sqrt(6 / fan_in), with head
@@ -443,7 +469,7 @@ def seeded_state_dict(seed: int) -> dict[str, torch.Tensor]:
     f32 rounding (another batch size, another cuDNN algorithm) grows to
     ~1e-4 in the probabilities. 1.9 keeps the output input-dependent and
     rounding at ~1e-7."""
-    sd = create_model("efficientnet", label_dim=N_CLASS, eff_b=EFF_B,
+    sd = create_model("efficientnet", label_dim=n_class, eff_b=EFF_B,
                       head_num=HEADS).state_dict()
     rng = np.random.default_rng(seed)
     bns = {k[: -len(".running_mean")] for k in sd if k.endswith(".running_mean")}
@@ -983,10 +1009,10 @@ START_STEP = 2000  # past the 1000-step warmup, whose first 50 rates are 0
 WARM_STEPS, TIMED_STEPS = 2, 10
 STEP_LOSS_ATOL = 1e-5  # the loss through the kernel vs the plain fbank, and remat
 STATS_ATOL = 1e-5  # running statistics after that step (0.01 of a batch's)
-# Parameters after that step: Adam's first update of a parameter is
-# g / (|g| + eps) * lr, at most lr in size, so a gradient whose sign the
-# two fbanks' ~1e-6 log-mel difference flips moves it by up to 2 lr.
-PARAM_ATOL = 2 * STEP_LR
+# Parameters after that step are held to 2 x the step's learning rate:
+# Adam's first update of a parameter is g / (|g| + eps) * lr, at most lr in
+# size, so a gradient whose sign the two fbanks' ~1e-6 log-mel difference
+# flips moves it by up to 2 lr.
 
 
 def train_config() -> PreprocessConfig:
@@ -994,14 +1020,15 @@ def train_config() -> PreprocessConfig:
                             freq_mask=48, time_mask=192, mixup_rate=0.5)
 
 
-def train_batch(cfg: PreprocessConfig, seed: int = 5) -> dict:
+def train_batch(cfg: PreprocessConfig, seed: int = 5, batch: int = STEP_BATCH,
+                n_class: int = N_CLASS) -> dict:
     """The loader's batch dict: int16 wire waveforms (tones plus noise) with
     ragged lengths, their full-clip means, multi-hot labels, and mixup
     partners that are the batch rolled by one."""
     rng = np.random.default_rng(seed)
-    n = cfg.fbank.buffer_length(TARGET)
-    wav = np.stack([tones(rng, n) for _ in range(STEP_BATCH)])
-    lengths = np.full(STEP_BATCH, n, np.int32)
+    n = cfg.fbank.buffer_length(cfg.target_length)
+    wav = np.stack([tones(rng, n) for _ in range(batch)])
+    lengths = np.full(batch, n, np.int32)
     lengths[::7] = rng.integers(n // 8, n, lengths[::7].size)  # short clips
     lengths[3] = 0
     for i, length in enumerate(lengths):
@@ -1010,18 +1037,19 @@ def train_batch(cfg: PreprocessConfig, seed: int = 5) -> dict:
     f32 = pcm.astype(np.float32) * np.float32(2.0 ** -15)
     means = np.array([f32[i, :length].mean() if length else 0.0
                       for i, length in enumerate(lengths)], np.float32)
-    labels = (rng.uniform(size=(STEP_BATCH, N_CLASS)) < 0.01).astype(np.float32)
-    labels[np.arange(STEP_BATCH), rng.integers(N_CLASS, size=STEP_BATCH)] = 1.0
+    labels = (rng.uniform(size=(batch, n_class)) < 0.01).astype(np.float32)
+    labels[np.arange(batch), rng.integers(n_class, size=batch)] = 1.0
     return {"wav": pcm, "wav_mean": means, "length": lengths, "labels": labels,
             "mix_wav": np.roll(pcm, 1, 0), "mix_wav_mean": np.roll(means, 1),
             "mix_length": np.roll(lengths, 1), "mix_labels": np.roll(labels, 1, 0)}
 
 
-def train_state(sd: dict, remat: bool = False):
-    model = create_model("efficientnet", label_dim=N_CLASS, eff_b=EFF_B, head_num=HEADS,
+def train_state(sd: dict, remat: bool = False, n_class: int = N_CLASS, lr: float = STEP_LR,
+                steps_per_epoch: int = STEPS_PER_EPOCH):
+    model = create_model("efficientnet", label_dim=n_class, eff_b=EFF_B, head_num=HEADS,
                          remat=remat)
     model.load_state_dict(sd)
-    schedule = psla_lr_schedule(STEP_LR, STEPS_PER_EPOCH, lrscheduler_start=10,
+    schedule = psla_lr_schedule(lr, steps_per_epoch, lrscheduler_start=10,
                                 lrscheduler_decay=0.5, warmup=True)
     return create_train_state(model, schedule, step=START_STEP, device=DEVICE)
 
@@ -1030,31 +1058,33 @@ def max_diff(a: dict, b: dict, keys) -> float:
     return max(float((a[k] - b[k]).abs().max()) for k in keys)
 
 
-def training_phase(profile: bool) -> tuple[int, float]:
-    """The audioset_full train step at full width; returns the fbank
-    kernel's launches in the step that is held to the plain fbank, and the
-    timed steps' clips/s."""
-    cfg = train_config()
-    batch = train_batch(cfg)
-    sd = seeded_state_dict(SEEDS[0])
-    state = train_state(sd)
+def step_held_to_plain(cfg: PreprocessConfig, batch: dict, make_state, what: str):
+    """The main path: one train step through the fbank kernel (its launch
+    count set to 0 just before and read just after: one launch), held to
+    the same step, with the same draws, through the plain fbank ('fft64'):
+    the loss, the running statistics and the parameters (the latter within
+    2 x the step's learning rate). Returns (the stepped state, its loss,
+    its state_dict, the step function, the generator, the draws)."""
+    size = len(batch["wav"])
+    state = make_state()
     check(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32,
           "TF32 is on for a float32 train step")
     lr = state.schedule(state.step)
-    check(lr == STEP_LR, f"learning rate {lr} at step {state.step}")
-    plain_state = train_state(sd)
+    param_atol = 2 * lr
+    plain_state = make_state()
     step = make_train_step_fn(cfg)
     plain_step = make_train_step_fn(dataclasses.replace(cfg, fbank_method="fft64"))
     gen = torch.Generator(device=DEVICE).manual_seed(0)
-    draws = draw_train(gen, state.model, STEP_BATCH, cfg)
+    draws = draw_train(gen, state.model, size, cfg)
     n_keep = 0 if draws.keep is None else draws.keep.shape[0]
-    print(f"train step: B{EFF_B}, {HEADS} heads, {N_CLASS} classes, T={TARGET}, batch "
-          f"{STEP_BATCH}, float32 (TF32 off), mixup {cfg.mixup_rate}, SpecAugment "
+    n_class = batch["labels"].shape[1]
+    print(f"{what}: B{EFF_B}, {HEADS} heads, {n_class} classes, T={cfg.target_length}, batch "
+          f"{size}, float32 (TF32 off), mixup {cfg.mixup_rate}, SpecAugment "
           f"{cfg.freq_mask}/{cfg.time_mask}, drop-connect on {n_keep} blocks, Adam at "
-          f"lr {lr} (step {state.step}); int16 batch, {int((batch['length'] == 0).sum())} "
-          f"empty and {int((batch['length'] < batch['length'].max()).sum())} short clips")
+          f"lr {lr} (step {state.step}); int16 batch [{size}, {batch['wav'].shape[1]}], "
+          f"{int((batch['length'] == 0).sum())} empty and "
+          f"{int((batch['length'] < batch['length'].max()).sum())} short clips")
 
-    # the main path: one step through the fbank kernel
     before = {k: v.clone() for k, v in state.model.state_dict().items()}
     torch.cuda.synchronize()
     fbank_cuda.LAUNCHES = 0
@@ -1079,15 +1109,58 @@ def training_phase(profile: bool) -> tuple[int, float]:
                      for k in params])
     print(f"loss {loss:.6f}; vs the same step through the plain fbank ('fft64'): loss "
           f"{loss_err:.3e} (bar {STEP_LOSS_ATOL}), running statistics {stats_err:.3e} (bar "
-          f"{STATS_ATOL}), parameters {param_err:.3e} (bar {PARAM_ATOL}; mean share of a "
+          f"{STATS_ATOL}), parameters {param_err:.3e} (bar {param_atol}; mean share of a "
           f"tensor's entries off by > 1e-6: {share:.2e}); {moved}/{len(params)} parameter "
           f"and {stats_moved}/{len(stats)} statistics tensors changed")
     check(loss_err <= STEP_LOSS_ATOL, f"train loss off the plain fbank's by {loss_err}")
     check(stats_err <= STATS_ATOL, f"running statistics off by {stats_err}")
-    check(param_err <= PARAM_ATOL, f"parameters off by {param_err}")
+    check(param_err <= param_atol, f"parameters off by {param_err}")
     check(moved == len(params) and stats_moved == len(stats),
           f"{moved}/{len(params)} parameters and {stats_moved}/{len(stats)} statistics moved")
-    del plain_state, plain_after
+    return state, loss, after, step, gen, draws
+
+
+def timed_steps(step, state, batch: dict, gen: torch.Generator, cfg: PreprocessConfig):
+    """WARM_STEPS, then TIMED_STEPS with fresh draws each: (state, device ms
+    of each step by CUDA events, wall ms a step, peak memory, losses); one
+    fbank launch a step, counted."""
+    size = len(batch["wav"])
+    for _ in range(WARM_STEPS):
+        state, metrics = step(state, batch, draw_train(gen, state.model, size, cfg))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fbank_cuda.LAUNCHES = 0
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(TIMED_STEPS)]
+    losses = []
+    t0 = time.perf_counter()
+    for start, end in events:
+        start.record()
+        state, metrics = step(state, batch, draw_train(gen, state.model, size, cfg))
+        end.record()
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    device_ms = [a.elapsed_time(b) for a, b in events]
+    losses = [float(x) for x in losses]
+    check(fbank_cuda.LAUNCHES == TIMED_STEPS,
+          f"{fbank_cuda.LAUNCHES} fbank launches in {TIMED_STEPS} steps")
+    check(bool(np.all(np.isfinite(losses))), f"train losses {losses}")
+    return state, device_ms, wall_ms, peak, losses
+
+
+def training_phase(profile: bool) -> tuple[int, float]:
+    """The audioset_full train step at full width; returns the fbank
+    kernel's launches in the step that is held to the plain fbank, and the
+    timed steps' clips/s."""
+    cfg = train_config()
+    batch = train_batch(cfg)
+    sd = seeded_state_dict(SEEDS[0])
+    state, loss, after, step, gen, draws = step_held_to_plain(
+        cfg, batch, lambda: train_state(sd), "train step")
+    launches = 1  # checked there
+    stats = [k for k in after if k.endswith(("running_mean", "running_var"))]
 
     # remat: the same draws from the same start
     remat_state = train_state(sd, remat=True)
@@ -1105,28 +1178,7 @@ def training_phase(profile: bool) -> tuple[int, float]:
     del remat_state
 
     # time: warm-up steps, then timed steps with fresh draws each
-    for _ in range(WARM_STEPS):
-        state, metrics = step(state, batch, draw_train(gen, state.model, STEP_BATCH, cfg))
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    fbank_cuda.LAUNCHES = 0
-    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-              for _ in range(TIMED_STEPS)]
-    losses = []
-    t0 = time.perf_counter()
-    for start, end in events:
-        start.record()
-        state, metrics = step(state, batch, draw_train(gen, state.model, STEP_BATCH, cfg))
-        end.record()
-        losses.append(metrics["loss"])
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
-    peak = torch.cuda.max_memory_allocated()
-    device_ms = [a.elapsed_time(b) for a, b in events]
-    losses = [float(x) for x in losses]
-    check(fbank_cuda.LAUNCHES == TIMED_STEPS,
-          f"{fbank_cuda.LAUNCHES} fbank launches in {TIMED_STEPS} steps")
-    check(bool(np.all(np.isfinite(losses))), f"train losses {losses}")
+    state, device_ms, wall_ms, peak, losses = timed_steps(step, state, batch, gen, cfg)
     print(f"train step, {TIMED_STEPS} steps after {WARM_STEPS} warm-up: device "
           f"{np.mean(device_ms):.2f} ms/step (CUDA events; {min(device_ms):.2f}-"
           f"{max(device_ms):.2f}), wall {wall_ms:.2f} ms/step, "
@@ -1833,6 +1885,378 @@ def eval_phase(profile: bool) -> tuple[int, dict]:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ---------------------------------------------------------------- phase 9
+
+# The FSD50K recipe (psla_tpu_torch/config.py:161-165; the reference's
+# egs/fsd50k/run.sh): EffNet-B2, 4 heads, 200 classes, T=3000, 128 mels,
+# batch 24, lr 5e-4, mixup 0.5, SpecAugment 48/192. The corpus is cut to 96
+# dev clips (72 train, 24 val) and 48 eval clips (FSD50K: 40,966 dev, of
+# them 36,796 train, and 10,231 eval) of 0.3-30 s at the release's 44.1 kHz.
+FSD = from_preset("fsd50k")
+FSD_TRAIN, FSD_VAL, FSD_EVAL = 72, 24, 48
+FSD_RATE, FSD_SECONDS = 44100, (0.3, 30.0)
+FSD_STEPS_PER_EPOCH = 36_796 // 24  # the schedule's epoch: FSD50K's train split
+RESAMPLE_STEPS = 1  # PCM16 steps: the native resampler vs data/wav.resample
+RELEASE_SEED = 31
+# (g): flagship.run at audioset_full width (B2, T=1056, batch 128), cut
+# from the tool's 1024 train and 256 val clips
+FLAGSHIP_CLIPS, FLAGSHIP_VAL_CLIPS, FLAGSHIP_EPOCHS = 512, 128, 3
+
+
+def write_fsd_root(root: str, seed: int = 19) -> dict[str, list[tuple[str, str]]]:
+    """An FSD50K-layout release root: ``FSD50K.ground_truth/{dev,eval}.csv``
+    (fname, labels, mids[, split]) and ``FSD50K.{dev,eval}_audio/`` of
+    44.1 kHz PCM16 clips, each 0.3-30 s of tones of 1-3 of the 200
+    classes (the class's own frequency) over noise, drawn with numpy from
+    ``seed``. Returns each split's (fname, mids) rows."""
+    labels = load_label_csv(assets.fsd50k_label_csv())
+    freqs = np.geomspace(60.0, 16000.0, len(labels))
+    rng = np.random.default_rng(seed)
+    gt = os.path.join(root, "FSD50K.ground_truth")
+    os.makedirs(gt)
+    rows: dict[str, list[tuple[str, str]]] = {}
+    for split, count in (("dev", FSD_TRAIN + FSD_VAL), ("eval", FSD_EVAL)):
+        audio = os.path.join(root, f"FSD50K.{split}_audio")
+        os.makedirs(audio)
+        rows[split] = []
+        for i in range(count):
+            n = int(rng.uniform(*FSD_SECONDS) * FSD_RATE)
+            t = np.arange(n) / FSD_RATE
+            classes = rng.choice(len(labels), size=rng.integers(1, 4), replace=False)
+            x = 0.02 * rng.standard_normal(n)
+            for c in classes:
+                x += 0.25 * np.sin(2 * np.pi * freqs[c] * t + rng.uniform(0, 2 * np.pi))
+            fname = str(100_000 * (split == "eval") + 1000 + i)
+            write_wav(os.path.join(audio, f"{fname}.wav"), x, FSD_RATE)
+            rows[split].append((fname, ",".join(labels[c]["mid"] for c in classes)))
+    for split, header in (("dev", ["fname", "labels", "mids", "split"]),
+                          ("eval", ["fname", "labels", "mids"])):
+        with open(os.path.join(gt, f"{split}.csv"), "w", newline="") as f:
+            out = csv.writer(f)
+            out.writerow(header)
+            for i, (fname, mids) in enumerate(rows[split]):
+                names = ",".join(next(r["display_name"] for r in labels if r["mid"] == m)
+                                 for m in mids.split(","))
+                extra = ["train" if i < FSD_TRAIN else "val"] if split == "dev" else []
+                out.writerow([fname, names, mids, *extra])
+    return rows
+
+
+def pcm16_of(path: str) -> np.ndarray:
+    return np.round(read_wav(path)[0].astype(np.float64) * 32768.0).astype(np.int64)
+
+
+def fsd_prep(root: str) -> dict[str, str]:
+    """(a) ``prep_fsd`` on a seeded FSD50K-layout root: both audio folders
+    through ``resample_dir`` (the native resampler must take every file),
+    three outputs held to ``wav.resample``, then ``build_datafiles``, whose
+    datafiles must hold the CSVs' rows in order and whose weight file must
+    be the balanced sampler's weights. Returns the datafile paths by name."""
+    t0 = time.perf_counter()
+    rows = write_fsd_root(root)
+    label_csv = assets.fsd50k_label_csv()
+    seconds = {s: sum(os.path.getsize(os.path.join(root, f"FSD50K.{s}_audio", f"{f}.wav")) - 44
+                      for f, _ in rows[s]) / 2 / FSD_RATE for s in rows}
+    print(f"fsd50k root: {len(rows['dev'])} dev ({FSD_TRAIN} train, {FSD_VAL} val) and "
+          f"{len(rows['eval'])} eval clips at {FSD_RATE} Hz, {seconds['dev']:.1f} + "
+          f"{seconds['eval']:.1f} s of audio, written in {time.perf_counter() - t0:.2f} s")
+    check(native.available(), "the native resampler (csrc/resample.cc) did not build")
+    out16 = {s: os.path.join(root, f"FSD50K.{s}_audio_16k") for s in rows}
+    t0 = time.perf_counter()
+    leftover = {s: prep_fsd.resample_dir(os.path.join(root, f"FSD50K.{s}_audio"), out16[s])
+                for s in rows}
+    secs = time.perf_counter() - t0
+    check(leftover == {"dev": 0, "eval": 0}, f"files left to the per-file path: {leftover}")
+    errs = []
+    for split, i in (("dev", 0), ("dev", -1), ("eval", 0)):
+        fname = rows[split][i][0]
+        x, sr = read_wav(os.path.join(root, f"FSD50K.{split}_audio", f"{fname}.wav"))
+        want = np.round(np.clip(resample(x, sr, 16000), -1.0, 1.0).astype(np.float64)
+                        * 32767.0).astype(np.int64)
+        got = pcm16_of(os.path.join(out16[split], f"{fname}.wav"))
+        check(got.shape == want.shape, f"{fname}: {got.shape} samples, want {want.shape}")
+        errs.append(int(np.abs(got - want).max()))
+    print(f"prep_fsd.resample_dir: {sum(len(r) for r in rows.values())} files to 16 kHz in "
+          f"{secs:.2f} s ({sum(seconds.values()) / secs:.0f}x real time on "
+          f"{len(os.sched_getaffinity(0))} cores), 0 via the per-file fallback; "
+          f"three outputs vs wav.resample: max {errs} PCM16 steps (bar {RESAMPLE_STEPS})")
+    check(max(errs) <= RESAMPLE_STEPS, f"native resampler vs wav.resample: {errs} steps")
+
+    paths = prep_fsd.build_datafiles(root, os.path.join(root, "datafiles"), out16["dev"],
+                                     out16["eval"], label_csv)
+    splits = {"fsd50k_tr_full": ("dev", slice(0, FSD_TRAIN)),
+              "fsd50k_val_full": ("dev", slice(FSD_TRAIN, None)),
+              "fsd50k_eval_full": ("eval", slice(None))}
+    for name, (split, part) in splits.items():
+        with open(paths[name]) as f:
+            data = json.load(f)["data"]
+        want = [{"wav": os.path.join(out16[split], f"{fname}.wav"), "labels": mids}
+                for fname, mids in rows[split][part]]
+        check(data == want, f"{name}: the datafile is not the CSV's rows")
+    weights = np.loadtxt(paths["fsd50k_tr_full"][:-5] + "_weight.csv", delimiter=",")
+    want = compute_sample_weights(load_datafile(paths["fsd50k_tr_full"], label_csv))
+    check(np.array_equal(weights, want), "the weight file is not the sampler's weights")
+    print(f"prep_fsd.build_datafiles: train {FSD_TRAIN}, val {FSD_VAL}, eval {FSD_EVAL} "
+          f"entries equal to the CSVs' rows; weight file equal to compute_sample_weights "
+          f"({weights.min():.1f}..{weights.max():.1f})")
+    return paths
+
+
+def fsd_fbank(eval_json: str) -> dict:
+    """(b) The fbank kernel at the fsd50k eval shape: the first eval batch
+    as the eval step gives it (decoded 16 kHz clips, DC removed, in a
+    [24, 480240] buffer with their ragged lengths) -> [24, 3000, 128]. One
+    launch counted, held to the plain version ('fft64'), then timed beside
+    it, the library yardsticks and its bound."""
+    from psla_tpu_torch.frontend import augment
+
+    pre = FSD.preprocess_config().eval_variant()
+    fc, target = pre.fbank, pre.target_length
+    loader = AudioLoader(load_datafile(eval_json, assets.fsd50k_label_csv()),
+                         LoaderConfig(batch_size=FSD.batch_size,
+                                      buffer_samples=fc.buffer_length(target),
+                                      drop_remainder=False), shuffle=False)
+    batches = iter(loader)
+    try:
+        batch = next(batches)
+    finally:
+        batches.close()
+    wb = _wav_batch(batch, torch.device(DEVICE))
+    wav = augment.dc_remove(wb.wav, wb.wav_mean, wb.length).contiguous()
+    lengths = wb.length.to(torch.int32)
+    n = wav.shape[1]
+    check(wav.shape == (FSD.batch_size, fc.buffer_length(target)), f"eval batch {wav.shape}")
+    torch.cuda.synchronize()
+    fbank_cuda.LAUNCHES = 0
+    got = fbank_cuda.fbank_cuda(wav, lengths, fc, target)
+    torch.cuda.synchronize()
+    launches = fbank_cuda.LAUNCHES
+    want = fbank_cuda.fbank_plain(wav, lengths, fc, target)
+    err = float((got - want).abs().max())
+    check(launches == 1, f"{launches} fbank launches for one fsd50k batch")
+    check(got.shape == (FSD.batch_size, target, fc.num_mel_bins), f"shape {tuple(got.shape)}")
+    check(bool(torch.isfinite(got).all()), "non-finite log-mel at the fsd50k shape")
+    check(err <= FBANK_ATOL, f"fbank at the fsd50k shape: error {err}")
+
+    frames = wav.unfold(-1, fc.window_size, fc.window_shift)[:, :target]
+    frames = frames.reshape(-1, fc.window_size).contiguous()
+    a = torch.from_numpy(frontend_matrix(fc)).to(DEVICE)
+    fns = {"kernel": lambda: fbank_cuda.fbank_cuda(wav, lengths, fc, target),
+           "plain": lambda: fbank_cuda.fbank_plain(wav, lengths, fc, target),
+           "library": lambda: torch.matmul(frames, a),
+           "rfft": lambda: torch.fft.rfft(frames, n=fc.padded_window_size)}
+    times: dict[str, list[float]] = {}
+    for name in ("plain", "kernel", "library", "rfft", "rfft", "library", "kernel", "plain"):
+        times.setdefault(name, []).append(cuda_ms(fns[name], reps=10))
+    ms = {k: float(np.mean(v)) for k, v in times.items()}
+    lens = lengths.cpu().numpy()
+    bound = fbank_bound(fc, lens, n, target)
+    full = fbank_bound(fc, np.full(len(lens), n), n, target)
+    print(f"fbank at the fsd50k eval shape [{len(lens)}, {n}] -> [{len(lens)}, {target}, "
+          f"{fc.num_mel_bins}] (clips {lens.min() / SR:.2f}-{lens.max() / SR:.2f} s, "
+          f"{bound['frames']} of {len(lens) * target} frames valid): launches {launches}, "
+          f"max abs err vs plain ('fft64') {err:.3e} (bar {FBANK_ATOL}); kernel "
+          f"{ms['kernel']:.4f} ms {times['kernel']}, plain {ms['plain']:.4f} ms, library "
+          f"(cuBLAS f32 frames[{frames.shape[0]},{frames.shape[1]}] @ A) {ms['library']:.4f} "
+          f"ms, cuFFT rfft {ms['rfft']:.4f} ms; bound {bound['ms']:.4f} ms ({bound['by']}: "
+          f"{bound['bytes'] / 1e6:.3f} MB, {bound['flop'] / 1e9:.4f} GFLOP), kernel at "
+          f"{bound['ms'] / ms['kernel']:.1%} of it; at full lengths the bound would be "
+          f"{full['ms']:.4f} ms ({full['by']}: {full['bytes'] / 1e6:.3f} MB)")
+    return {"ms": ms["kernel"], "plain_ms": ms["plain"], "library_ms": ms["library"],
+            "bound_ms": bound["ms"], "bound_by": bound["by"], "max_abs_err": err,
+            "launches": launches}
+
+
+def fsd_train_step() -> tuple[float, float]:
+    """(c) The fsd50k train step at full width, held to the plain fbank's
+    step at phase 6's bars, then timed. Returns (clips/s, device ms)."""
+    cfg = FSD.preprocess_config()
+    batch = train_batch(cfg, seed=23, batch=FSD.batch_size, n_class=FSD.n_class)
+    sd = seeded_state_dict(SEEDS[0], n_class=FSD.n_class)
+    state, _, _, step, gen, _ = step_held_to_plain(
+        cfg, batch, lambda: train_state(sd, n_class=FSD.n_class, lr=FSD.lr,
+                                        steps_per_epoch=FSD_STEPS_PER_EPOCH),
+        "fsd50k train step")
+    state, device_ms, wall_ms, peak, losses = timed_steps(step, state, batch, gen, cfg)
+    clips_s = FSD.batch_size / wall_ms * 1e3
+    print(f"fsd50k train step, {TIMED_STEPS} steps after {WARM_STEPS} warm-up: device "
+          f"{np.mean(device_ms):.2f} ms/step (CUDA events; {min(device_ms):.2f}-"
+          f"{max(device_ms):.2f}), wall {wall_ms:.2f} ms/step, {clips_s:.1f} clips/s; peak "
+          f"memory {peak / 2**30:.2f} GiB; losses {losses[0]:.4f} .. {losses[-1]:.4f} "
+          f"({card()})")
+    return clips_s, float(np.mean(device_ms))
+
+
+def fsd_trainer(paths: dict[str, str], root: str) -> int:
+    """(d) ``psla-torch-train --preset fsd50k`` (``cli.run``) on (a)'s
+    datafiles, one epoch from a fresh start: the fbank launches (set to 0
+    just before, read just after) must be the train steps plus every eval
+    batch; result.csv and the prediction CSVs finite. Returns the launches."""
+    exp = os.path.join(root, "exp_fsd50k")
+    argv = ["--preset", "fsd50k", "--data-train", paths["fsd50k_tr_full"], "--data-val",
+            paths["fsd50k_val_full"], "--data-eval", paths["fsd50k_eval_full"],
+            "--label-csv", assets.fsd50k_label_csv(), "--exp-dir", exp, "--impretrain",
+            "False", "--warmup", "False", "--n-epochs", "1", "--wa_start", "1", "--wa_end",
+            "1", "--eff_b", str(EFF_B), "--target_length", str(FSD.target_length), "-b",
+            str(FSD.batch_size), "--device", DEVICE]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fbank_cuda.LAUNCHES = 0
+    t0 = time.perf_counter()
+    run = run_cli(argv)
+    torch.cuda.synchronize()
+    launches, wall = fbank_cuda.LAUNCHES, time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    spe, vb = run.steps_per_epoch, run.val_loader.batches_per_epoch()
+    eb = run.eval_loader.batches_per_epoch()
+    # the train steps, validation and the wa model's, then the protocol:
+    # best and wa on val and eval, the epoch checkpoint on eval
+    want = spe + vb + vb + 2 * (vb + eb) + eb
+    secs = run.train_seconds[1]
+    print(f"psla-torch-train --preset fsd50k (cli.run: B{EFF_B}, {run.config.att_head} heads, "
+          f"{run.config.n_class} classes, T={run.config.target_length}, batch "
+          f"{run.config.batch_size}, float32, mixup {run.config.mixup}, SpecAugment "
+          f"{run.config.freqm}/{run.config.timem}, bal): 1 epoch of {spe} steps in {secs:.3f} s "
+          f"of train loop ({spe * run.config.batch_size / secs:.1f} clips/s), {wall:.2f} s in "
+          f"all with validation and the protocol; fbank launches {launches} (train steps "
+          f"{spe} + eval batches {want - spe}); peak memory {peak / 2**30:.2f} GiB ({card()})")
+    check(launches == want, f"{launches} fbank launches, want {want}")
+    result = np.loadtxt(os.path.join(exp, "result.csv"), delimiter=",")
+    check(result.shape == (10,) and bool(np.all(np.isfinite(result))), f"result.csv {result}")
+    for name in ("predictions/target.csv", "predictions/predictions_1.csv",
+                 "predictions/eval_target.csv", "predictions/predictions_eval_1.csv",
+                 "best_single_result.csv", "wa_result.csv", "ensemble_result.csv"):
+        values = np.loadtxt(os.path.join(exp, name), delimiter=",")
+        check(values.size > 0 and bool(np.all(np.isfinite(values))), f"{name}: not finite")
+    return launches
+
+
+def tools_on_card(root: str) -> int:
+    """(e) ``smoke.run`` and ``smoke.run_protocol`` on the card at the
+    tool's own toy shape (B0, T=64); returns their fbank launches."""
+    launches = 0
+    for name, fn in (("smoke.run", lambda d: smoke.run(2, exp_root=d, device=DEVICE)),
+                     ("smoke.run_protocol",
+                      lambda d: smoke.run_protocol(1, exp_root=d, device=DEVICE))):
+        d = tempfile.mkdtemp(dir=root)
+        res, secs, n, _ = timed_tool(lambda: fn(d))
+        launches += n
+        extra = (f", {res['labels_added']} labels added, retrain loss "
+                 f"{res['retrain_loss']:.6f} vs control {res['control_loss']:.6f}"
+                 if "labels_added" in res else "")
+        print(f"{name} on {smoke.device_name(DEVICE)}: {secs:.2f} s, fbank launches {n}, "
+              f"summary {json.dumps(res['summary'])}{extra}")
+        check(n > 0, f"{name}: the fbank kernel was not launched")
+    return launches
+
+
+def release_phase(eval_json: str, root: str) -> int:
+    """(f) ``verify_release`` on a ``file://`` URL of a seeded B2 ``.pth`` of
+    200 classes in the reference layout (``module.`` prefixes and an
+    ``_fc``): every stage ok against the mAP ``tools/ensemble`` gives the
+    same file, and the predict stage's probabilities within 1e-4 of
+    ``predict_long`` through the plain fbank. Returns the fbank launches."""
+    label_csv = assets.fsd50k_label_csv()
+    sd = seeded_state_dict(RELEASE_SEED, n_class=FSD.n_class)
+    ref = {f"module.{k}": v for k, v in sd.items()}
+    ref["module.effnet._fc.weight"] = torch.zeros(FSD.n_class, 1408)
+    ref["module.effnet._fc.bias"] = torch.zeros(FSD.n_class)
+    pth = os.path.join(root, "fsd_release.pth")
+    torch.save(ref, pth)
+    pre = PreprocessConfig(target_length=FSD.target_length).eval_variant()
+    loader = AudioLoader(load_datafile(eval_json, label_csv),
+                         LoaderConfig(batch_size=16, drop_remainder=False,
+                                      buffer_samples=pre.fbank.buffer_length(FSD.target_length)),
+                         shuffle=False)
+    expected = ensemble_tool.ensemble_eval([pth], loader, pre, n_class=FSD.n_class,
+                                           eff_b=EFF_B, device=DEVICE)["models"][0]["mAP"]
+    predicted = []
+    run = predict_tool.run
+
+    def recorded(argv):
+        predicted.append(run(argv))
+        return predicted[-1]
+
+    predict_tool.run = recorded
+    try:
+        verdict, secs, launches, _ = timed_tool(lambda: verify_release.verify(
+            "fsd_mdl_best_single", os.path.join(root, "zoo"), url=f"file://{pth}",
+            eval_data=eval_json, label_csv=label_csv, expected_map=expected, eff_b=EFF_B,
+            target_length=FSD.target_length, device=DEVICE))
+    finally:
+        predict_tool.run = run
+    ((wav_path, probs),) = predicted[0].items()
+    model = create_model("efficientnet", label_dim=FSD.n_class, eff_b=EFF_B, head_num=HEADS)
+    model.load_state_dict(sd)
+    want = predict_long(model.to(DEVICE), read_wav(wav_path)[0],
+                        PreprocessConfig(target_length=FSD.target_length, fbank_method="fft64"),
+                        device=DEVICE)
+    err = float(np.abs(probs - want).max())
+    print(f"verify_release fsd_mdl_best_single (file://, B{EFF_B}, {FSD.n_class} classes, "
+          f"T={FSD.target_length}): {secs:.2f} s, stages "
+          f"{ {k: v['ok'] for k, v in verdict['stages'].items()} }, eval mAP "
+          f"{verdict['stages']['eval'].get('mAP')} against tools/ensemble's {expected:.6f} "
+          f"(tolerance {verify_release.DEFAULT_TOLERANCE}); predict vs plain predict_long "
+          f"max abs {err:.3e} (bar {PREDICT_ATOL}); fbank launches {launches}")
+    check(verdict["ok"] and all(v["ok"] for v in verdict["stages"].values())
+          and verdict["stages"]["eval"].get("within_tolerance"), f"verdict {verdict}")
+    check(err <= PREDICT_ATOL, f"verify_release predict vs plain predict_long: {err}")
+    return launches
+
+
+def flagship_phase(root: str, step_clips_s: float):
+    """(g) ``flagship.run`` at audioset_full width, killed at epoch 2's
+    first print step and resumed; it must complete every epoch."""
+    torch.cuda.empty_cache()
+    out = os.path.join(root, "flagship")
+    try:
+        res = flagship.run(clips=FLAGSHIP_CLIPS, val_clips=FLAGSHIP_VAL_CLIPS,
+                           epochs=FLAGSHIP_EPOCHS, out=out, device=DEVICE,
+                           step_clips_per_sec=round(step_clips_s, 1))
+    except BaseException:
+        log = os.path.join(out, "run.log")
+        if os.path.exists(log):
+            with open(log) as f:
+                print(f.read()[-6000:])
+        raise
+    print(f"flagship (B2, T={flagship.TARGET_LENGTH}, batch 128, {FLAGSHIP_CLIPS} train and "
+          f"{FLAGSHIP_VAL_CLIPS} val clips, {FLAGSHIP_EPOCHS} epochs, killed at epoch "
+          f"{res['killed_mid_epoch']}, resumed from epoch {res['resumed_from_epoch']}): "
+          f"{json.dumps(res)} ({card()})")
+    rates = res["epoch_clips_per_sec"]
+    print(f"flagship loader-fed rate: epoch {FLAGSHIP_EPOCHS}'s train loop "
+          f"{rates.get(FLAGSHIP_EPOCHS)} clips/s (each epoch: {rates}), the meters' median "
+          f"{res['sustained_clips_per_sec']} clips/s (data share {res['data_time_share']}), "
+          f"beside phase 6's bare step {res['bare_step_clips_per_sec']} clips/s at batch "
+          f"{STEP_BATCH}")
+    check(res["resume_completed_epochs"] == FLAGSHIP_EPOCHS, f"flagship: {res}")
+    check(res["resumed_from_epoch"] < FLAGSHIP_EPOCHS and res["wa_checkpoint"],
+          f"flagship: {res}")
+    check(res["device"]["device"] == DEVICE, f"flagship trained on {res['device']}")
+
+
+def fsd_phase(step_clips_s: float) -> dict:
+    """Phase 9: the FSD50K recipe and the tools on the card. Returns the
+    fbank kernel's numbers at the fsd50k shape and its launches there."""
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="psla_fsd50k_")
+    try:
+        paths = fsd_prep(root)
+        out = {f"{k}_fsd50k": v for k, v in fsd_fbank(paths["fsd50k_eval_full"]).items()}
+        torch.cuda.empty_cache()
+        out["clips_s_fsd50k_step"], _ = fsd_train_step()
+        torch.cuda.empty_cache()
+        out["launches_fsd50k_trainer_run"] = fsd_trainer(paths, root)
+        torch.cuda.empty_cache()
+        out["launches_smoke_tools"] = tools_on_card(root)
+        out["launches_verify_release"] = release_phase(paths["fsd50k_eval_full"], root)
+        flagship_phase(root, step_clips_s)
+        print(f"phase 9: {time.perf_counter() - t_phase:.1f} s")
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -1859,6 +2283,8 @@ def main(argv=None) -> int:
         args.profile, step_clips_s)
     torch.cuda.empty_cache()
     record["launches_eval_side"], _ = eval_phase(args.profile)
+    torch.cuda.empty_cache()
+    record.update(fsd_phase(step_clips_s))
     for r in records:
         check(r["launches"] > 0, f"kernel {r['name']} was not launched on its path")
     print(f"total {time.perf_counter() - t0:.1f} s")

@@ -1,5 +1,6 @@
-"""Bundled public label vocabularies (the reference ships the same files as
-egs/audioset/class_labels_indices.csv and egs/fsd50k/class_labels_indices.csv)."""
+"""Bundled public label vocabularies and the AudioSet ontology (the reference
+ships the same files as egs/audioset/class_labels_indices.csv,
+egs/fsd50k/class_labels_indices.csv and src/utilities/ontology.json)."""
 
 from __future__ import annotations
 
@@ -16,6 +17,11 @@ def audioset_label_csv() -> str:
 def fsd50k_label_csv() -> str:
     """200-class FSD50K vocabulary."""
     return os.path.join(_HERE, "fsd50k_class_labels_indices.csv")
+
+
+def ontology_json() -> str:
+    """AudioSet ontology (632 nodes) for the label-enhancement tools."""
+    return os.path.join(_HERE, "ontology.json")
 
 
 def label_csv_for(dataset: str) -> str:

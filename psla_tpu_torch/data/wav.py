@@ -1,7 +1,7 @@
 """Minimal RIFF/WAVE codec and resampler (numpy and scipy only).
 
-Port of ``psla_tpu/data/wav.py`` plus ``resample`` from
-``psla_tpu/tools/prep_fsd.py``. Decodes PCM 8/16/24/32 and IEEE float32/64,
+Port of ``psla_tpu/data/wav.py`` (``read_wav``, ``decode_wav``,
+``write_wav``) plus ``resample`` from ``psla_tpu/tools/prep_fsd.py``. Decodes PCM 8/16/24/32 and IEEE float32/64,
 mono or multichannel, to float32 in [-1, 1] exactly like torchaudio
 (int16 / 32768, ...). Multichannel files return the first channel, as the
 reference always indexes channel 0.
@@ -94,3 +94,19 @@ def resample(wav: np.ndarray, sr: int, target_sr: int) -> np.ndarray:
 
     g = gcd(target_sr, sr)
     return resample_poly(wav, target_sr // g, sr // g).astype(np.float32)
+
+
+def write_wav(path: str, waveform: np.ndarray, sample_rate: int):
+    """Write a mono float waveform as PCM16: clipped to [-1, 1], scaled by
+    32767 and rounded half to even, byte for byte the JAX package's writer."""
+    wav = np.clip(np.asarray(waveform, dtype=np.float64), -1.0, 1.0)
+    raw = np.round(wav * 32767.0).astype("<i2").tobytes()
+    with open(path, "wb") as f:
+        f.write(b"RIFF")
+        f.write(struct.pack("<I", 36 + len(raw)))
+        f.write(b"WAVE")
+        f.write(b"fmt ")
+        f.write(struct.pack("<IHHIIHH", 16, 1, 1, sample_rate, sample_rate * 2, 2, 16))
+        f.write(b"data")
+        f.write(struct.pack("<I", len(raw)))
+        f.write(raw)

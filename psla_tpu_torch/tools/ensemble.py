@@ -11,7 +11,8 @@ predictions (mAP, mAUC, d') -- the protocol behind the paper's headline
 ensemble mAP. A checkpoint is anything ``models.convert.load_variables``
 reads: a reference ``.pth`` (``module.`` prefixes and ``_fc`` normalized),
 the port's own, a training checkpoint directory, or an ``.npz`` of JAX
-variables. Each member's pooling heads are read from its checkpoint.
+variables. Each member's pooling heads are read from its checkpoint;
+``--att_head`` (the JAX tools' flag) checks each checkpoint's count.
 
 The default is one STACKED pass: each batch is copied to the card once,
 goes through the fbank kernel once, and then through the E member forwards
@@ -57,6 +58,14 @@ def head_num(state_dict: Mapping[str, torch.Tensor]) -> int:
     if "weight" in heads:
         return 1
     return len(heads)
+
+
+def check_heads(ckpt: str, state_dict: Mapping[str, torch.Tensor], att_head: int | None):
+    """Raise when ``att_head`` is given and the checkpoint's pooling heads
+    (``head_num``) are another count."""
+    if att_head is not None and head_num(state_dict) != att_head:
+        raise ValueError(f"{ckpt}: the checkpoint has {head_num(state_dict)} attention "
+                         f"heads, --att_head asks for {att_head}")
 
 
 def member_model(state_dict: Mapping[str, torch.Tensor], model_name: str, n_class: int,
@@ -135,10 +144,14 @@ def ensemble_eval(
     out_dir: str | None = None,
     stacked: bool = True,
     device: str | torch.device = "cuda",
+    att_head: int | None = None,
 ) -> dict:
     """Evaluate each checkpoint, then the mean of their predictions
-    (ensemble.py:52-68). Returns per-model and ensemble mAP, mAUC and d'."""
+    (ensemble.py:52-68). Returns per-model and ensemble mAP, mAUC and d'.
+    ``att_head``, where given, must be every checkpoint's head count."""
     state_dicts = [load_variables(c) for c in checkpoints]
+    for ckpt, sd in zip(checkpoints, state_dicts):
+        check_heads(ckpt, sd, att_head)
     if stacked and not same_layout(state_dicts):
         print("checkpoint param trees differ; falling back to sequential")
         stacked = False
@@ -177,8 +190,7 @@ def ensemble_eval(
 
 def eval_parser(description: str) -> argparse.ArgumentParser:
     """The flags this tool and ``tools/weight_averaging.py`` share (the JAX
-    tools' flags without ``--att_head``, which each checkpoint gives, and
-    with ``--device``)."""
+    tools' flags, and ``--device``)."""
     p = argparse.ArgumentParser(description=description)
     p.add_argument("checkpoints", nargs="+",
                    help=".pth/.pt state_dicts (reference layout), training checkpoint "
@@ -188,6 +200,9 @@ def eval_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--preset", choices=sorted(PRESETS), default=None)
     p.add_argument("--model", default="efficientnet")
     p.add_argument("--eff_b", type=int, default=2)
+    p.add_argument("--att_head", type=int, default=None,
+                   help="the checkpoints' attention heads (default: each checkpoint's "
+                        "own; given, a checkpoint with another count is refused)")
     p.add_argument("--n_class", type=int, default=None)
     p.add_argument("--batch-size", type=int, default=None)
     p.add_argument("--target_length", type=int, default=None)
@@ -222,7 +237,7 @@ def main(argv=None) -> int:
     loader, pre, n_class = eval_setup(args)
     ensemble_eval(args.checkpoints, loader, pre, model_name=args.model, n_class=n_class,
                   eff_b=args.eff_b, out_dir=args.out_dir, stacked=not args.sequential,
-                  device=args.device)
+                  device=args.device, att_head=args.att_head)
     return 0
 
 

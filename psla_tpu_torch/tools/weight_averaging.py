@@ -20,6 +20,7 @@ import torch
 
 from psla_tpu_torch.models.convert import load_variables
 from psla_tpu_torch.tools.ensemble import (
+    check_heads,
     eval_parser,
     eval_setup,
     member_model,
@@ -66,10 +67,18 @@ def weight_average_eval(
     n_class: int = 527,
     eff_b: int = 2,
     device: str | torch.device = "cuda",
+    att_head: int | None = None,
 ) -> dict:
     """Average the checkpoints and score the averaged model: {"mAP",
-    "mAUC", "state_dict", "predictions"}."""
-    state_dict = average_state_dicts(load_variables(c) for c in checkpoints)
+    "mAUC", "state_dict", "predictions"}. ``att_head``, where given, must
+    be every checkpoint's head count."""
+    def state_dicts():
+        for c in checkpoints:
+            sd = load_variables(c)
+            check_heads(c, sd, att_head)
+            yield sd
+
+    state_dict = average_state_dicts(state_dicts())
     pred, target = predict(member_model(state_dict, model_name, n_class, eff_b), loader,
                            pre_config, device)
     m, a = scores(pred, target)
@@ -81,7 +90,8 @@ def main(argv=None) -> int:
     args = eval_parser(__doc__.split("\n")[0]).parse_args(argv)
     loader, pre, n_class = eval_setup(args)
     weight_average_eval(args.checkpoints, loader, pre, model_name=args.model,
-                        n_class=n_class, eff_b=args.eff_b, device=args.device)
+                        n_class=n_class, eff_b=args.eff_b, device=args.device,
+                        att_head=args.att_head)
     return 0
 
 

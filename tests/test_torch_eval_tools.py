@@ -181,6 +181,50 @@ def test_ensemble_cli(corpus, tmp_path, capsys):
     assert "ensemble of 2: mAP" in capsys.readouterr().out
 
 
+# The JAX tools' command lines, as tests/test_tools.py drives them
+# (test_ensemble_cli_main, test_weight_averaging_cli_main), with and
+# without the --att_head flag their parsers take.
+JAX_COMMON = ["--data-eval", "eval.json", "--label-csv", "labels.csv", "--eff_b", "0",
+              "--n_class", "2", "--batch-size", "8", "--target_length", "64"]
+
+
+@pytest.mark.parametrize("tool,extra", [
+    ("ensemble", ["--out-dir", "preds"]),
+    ("ensemble", ["--out-dir", "preds", "--att_head", "4"]),
+    ("weight_averaging", []),
+    ("weight_averaging", ["--att_head", "4"]),
+])
+def test_jax_command_lines_parse(monkeypatch, tool, extra):
+    """--att_head is accepted and handed to the tool's eval function."""
+    module = {"ensemble": ensemble, "weight_averaging": weight_averaging}[tool]
+    run = {"ensemble": "ensemble_eval", "weight_averaging": "weight_average_eval"}[tool]
+    seen = {}
+    monkeypatch.setattr(module, "eval_setup", lambda args: ("loader", "pre", 2))
+    monkeypatch.setattr(module, run, lambda checkpoints, *a, **kw: seen.update(
+        checkpoints=checkpoints, **kw))
+    assert module.main(["ckpt0", "ckpt1"] + JAX_COMMON + extra) == 0
+    assert seen["checkpoints"] == ["ckpt0", "ckpt1"]
+    assert seen["att_head"] == (4 if "--att_head" in extra else None)
+    assert seen["device"] == "cuda"
+
+
+def test_att_head_is_checked_against_each_checkpoint(corpus, tmp_path):
+    """A given --att_head must be each checkpoint's head count: a mismatch
+    names the checkpoint and both counts; the right count evaluates."""
+    datafile, label_csv, paths, _ = corpus
+    argv = ["--data-eval", datafile, "--label-csv", label_csv, "--eff_b", "0", "--n_class",
+            str(N_CLASS), "--batch-size", str(B), "--target_length", str(T), "--device",
+            "cpu"]
+    for tool in (ensemble, weight_averaging):
+        with pytest.raises(ValueError, match=f"{paths[1]}: the checkpoint has {HEADS} "
+                                             "attention heads, --att_head asks for 1"):
+            tool.main(paths[1:] + argv + ["--att_head", "1"])
+    res = ensemble.ensemble_eval(paths[1:], eval_loader(datafile, label_csv), PRE,
+                                 n_class=N_CLASS, eff_b=0, device="cpu", att_head=HEADS)
+    assert len(res["models"]) == 2
+    assert weight_averaging.main(paths[1:] + argv + ["--att_head", str(HEADS)]) == 0
+
+
 # -------------------------------------------------------- weight averaging
 
 
