@@ -119,6 +119,30 @@ result line):
    (B2, T=1056, batch 128; 512 train and 128 val clips, 3 epochs), killed
    at epoch 2's first print step and resumed: every epoch completed, the
    summary beside phase 6's bare step.
+10. The ResNet50 and MobileNetV2 backbones (``--model resnet|mbnet``:
+   ResNetAttention and MBNet) at the audioset_full widths (527 classes,
+   T=1056, 128 mels, float32 with TF32 off unless stated) on seeded
+   weights (``seeded_state_dict``), for each of the two: (a) a 2-member
+   ensemble through ``InferenceEngine.batch_probs`` at micro-batch 16, one
+   fbank launch a dispatch (counted), the probabilities within 1e-4 of the
+   same members on the plain fbank, then the clips/s of full dispatches in
+   float32 and bfloat16; (b) the train step at batch 100 (mixup 0.5,
+   SpecAugment 48/192, Adam past warmup; the largest batch that fits, if
+   100 does not) held to the plain fbank's step at phase 6's bars, then 2
+   warm-up and 10 timed steps beside phase 6's B2 step; (c)
+   ``psla-torch-predict`` on a 60 s clip within 1e-4 of ``predict_long`` on
+   the plain fbank (ResNet through the pooling statistics, MBNet through
+   the length-weighted fallback), ``tools/ensemble.main`` on 2 saved
+   members stacked and ``--sequential`` within 1e-5, launches counted as in
+   phase 8, and ``convert_ckpt`` round-tripping a member. Then (d)
+   ``psla-torch-train --model resnet`` (``cli.run``) for 1 epoch on phase
+   7's corpus writer (300 train and 100 val clips of 10 s) from
+   ``impretrain`` with a seeded torchvision-layout ``resnet50-seeded.pth``
+   named by ``PSLA_TPU_IMAGENET_CKPT``: the run's initial stem the fresh
+   init's, every other backbone entry the file's; the fbank launches the
+   train steps plus the eval batches; the CSVs finite; the wa checkpoint
+   served through ``InferenceEngine``. ``--profile`` adds the device time by
+   group of each backbone's train step.
 
 The line before the last is a JSON object with one record per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -169,12 +193,13 @@ from psla_tpu_torch.frontend.fbank import (
     pad_or_truncate,
 )
 from psla_tpu_torch.frontend.pipeline import PreprocessConfig
-from psla_tpu_torch.inference import _chunk_logmel, predict_long
+from psla_tpu_torch.inference import _chunk_logmel, ensemble_probs, predict_long
 from psla_tpu_torch.models import create_model
 from psla_tpu_torch.models.convert import load_variables
 from psla_tpu_torch.models.pretrained import CKPT_ENV
 from psla_tpu_torch.ops import fused_mbconv, mbconv_vmem
 from psla_tpu_torch.tools import compute_stats as stats_tool
+from psla_tpu_torch.tools import convert_ckpt as convert_tool
 from psla_tpu_torch.tools import ensemble as ensemble_tool
 from psla_tpu_torch.tools import export as export_tool
 from psla_tpu_torch.tools import flagship, prep_fsd, smoke, verify_release
@@ -458,19 +483,22 @@ def train_batch_phase(cfg: FbankConfig):
 # ---------------------------------------------------------------- phase 4
 
 
-def seeded_state_dict(seed: int, n_class: int = N_CLASS) -> dict[str, torch.Tensor]:
-    """Random B2 weights drawn with numpy from a seed: BatchNorm statistics
-    mean ~N(0, 0.1), var ~U(0.5, 1.5), so eval outputs are not flat; pooling
-    heads at the reference's U(-a, a), a = sqrt(6 / fan_in), with head
-    weights that sum to 1 as the reference's 1/H do. Conv kernels
-    are normal with variance 1.9 / fan_in. Over fan-out (the JAX package's
-    He init) the activations shrink block by block and the output stops
-    depending on the input; at 2 / fan_in the forward turns chaotic and
-    f32 rounding (another batch size, another cuDNN algorithm) grows to
-    ~1e-4 in the probabilities. 1.9 keeps the output input-dependent and
-    rounding at ~1e-7."""
-    sd = create_model("efficientnet", label_dim=n_class, eff_b=EFF_B,
-                      head_num=HEADS).state_dict()
+def seeded_state_dict(seed: int, n_class: int = N_CLASS,
+                      model: str = "efficientnet") -> dict[str, torch.Tensor]:
+    """Random weights of ``model`` (B2 for EfficientNet) drawn with numpy
+    from a seed: BatchNorm statistics mean ~N(0, 0.1), var ~U(0.5, 1.5), so
+    eval outputs are not flat; pooling heads at the reference's U(-a, a),
+    a = sqrt(6 / fan_in), with head weights that sum to 1 as the
+    reference's 1/H do. Conv kernels (and MBNet's classifier) are normal
+    with variance 1.9 / fan_in. Over fan-out (the JAX package's He init)
+    the activations shrink block by block and the output stops depending
+    on the input; at 2 / fan_in the forward turns chaotic and f32 rounding
+    (another batch size, another cuDNN algorithm) grows to ~1e-4 in the
+    probabilities. 1.9 keeps the output input-dependent and rounding at
+    ~1e-7. ResNet's last BatchNorm of each residual branch (``bn3``)
+    scales by U(0.1, 0.3): every block adds its branch to the identity, and
+    over 16 blocks the probabilities would saturate at 0 and 1."""
+    sd = create_model(model, label_dim=n_class, eff_b=EFF_B, head_num=HEADS).state_dict()
     rng = np.random.default_rng(seed)
     bns = {k[: -len(".running_mean")] for k in sd if k.endswith(".running_mean")}
     out = {}
@@ -478,9 +506,10 @@ def seeded_state_dict(seed: int, n_class: int = N_CLASS) -> dict[str, torch.Tens
         prefix, leaf = k.rsplit(".", 1)
         shape = tuple(v.shape)
         if prefix in bns:
+            scale = (0.1, 0.3) if prefix.endswith(".bn3") else (0.8, 1.2)
             x = {"running_mean": lambda: rng.normal(0.0, 0.1, shape),
                  "running_var": lambda: rng.uniform(0.5, 1.5, shape),
-                 "weight": lambda: rng.uniform(0.8, 1.2, shape),
+                 "weight": lambda: rng.uniform(*scale, shape),
                  "bias": lambda: rng.normal(0.0, 0.1, shape)}[leaf]()
         elif k == "attention.head_weight":  # sums to 1: probabilities stay in (0, 1)
             x = rng.uniform(0.5, 1.5, shape)
@@ -488,19 +517,25 @@ def seeded_state_dict(seed: int, n_class: int = N_CLASS) -> dict[str, torch.Tens
         elif k.startswith("attention.") and leaf == "weight":
             a = np.sqrt(6.0 / shape[1])
             x = rng.uniform(-a, a, shape)
-        elif leaf == "weight":  # conv kernel [out, in / groups, k, k]
+        elif leaf == "weight":  # conv kernel [out, in / groups, k, k], classifier
             x = rng.normal(0.0, np.sqrt(1.9 / np.prod(shape[1:])), shape)
-        else:  # pooling and squeeze-excite biases
+        else:  # pooling, squeeze-excite and classifier biases
             x = rng.normal(0.0, 0.1, shape)
         out[k] = torch.from_numpy(x.astype(np.float32))
     return out
 
 
-def member(sd: dict, dtype: torch.dtype):
-    model = create_model("efficientnet", label_dim=N_CLASS, eff_b=EFF_B, head_num=HEADS,
-                         dtype=dtype)
-    model.load_state_dict(sd)
-    return model
+def member(sd: dict, dtype: torch.dtype, model: str = "efficientnet"):
+    out = create_model(model, label_dim=N_CLASS, eff_b=EFF_B, head_num=HEADS, dtype=dtype)
+    out.load_state_dict(sd)
+    return out
+
+
+def arch(model: torch.nn.Module) -> str:
+    """The model's family and widths, for the printed lines."""
+    if hasattr(model, "effnet"):
+        return f"B{model.b}, {model.head_num} heads"
+    return "ResNet50, 1 head" if hasattr(model, "attention") else "MobileNetV2"
 
 
 def wav_bytes(x: np.ndarray, sr: int) -> bytes:
@@ -1045,8 +1080,8 @@ def train_batch(cfg: PreprocessConfig, seed: int = 5, batch: int = STEP_BATCH,
 
 
 def train_state(sd: dict, remat: bool = False, n_class: int = N_CLASS, lr: float = STEP_LR,
-                steps_per_epoch: int = STEPS_PER_EPOCH):
-    model = create_model("efficientnet", label_dim=n_class, eff_b=EFF_B, head_num=HEADS,
+                steps_per_epoch: int = STEPS_PER_EPOCH, model_name: str = "efficientnet"):
+    model = create_model(model_name, label_dim=n_class, eff_b=EFF_B, head_num=HEADS,
                          remat=remat)
     model.load_state_dict(sd)
     schedule = psla_lr_schedule(lr, steps_per_epoch, lrscheduler_start=10,
@@ -1078,7 +1113,7 @@ def step_held_to_plain(cfg: PreprocessConfig, batch: dict, make_state, what: str
     draws = draw_train(gen, state.model, size, cfg)
     n_keep = 0 if draws.keep is None else draws.keep.shape[0]
     n_class = batch["labels"].shape[1]
-    print(f"{what}: B{EFF_B}, {HEADS} heads, {n_class} classes, T={cfg.target_length}, batch "
+    print(f"{what}: {arch(state.model)}, {n_class} classes, T={cfg.target_length}, batch "
           f"{size}, float32 (TF32 off), mixup {cfg.mixup_rate}, SpecAugment "
           f"{cfg.freq_mask}/{cfg.time_mask}, drop-connect on {n_keep} blocks, Adam at "
           f"lr {lr} (step {state.step}); int16 batch [{size}, {batch['wav'].shape[1]}], "
@@ -1150,10 +1185,10 @@ def timed_steps(step, state, batch: dict, gen: torch.Generator, cfg: PreprocessC
     return state, device_ms, wall_ms, peak, losses
 
 
-def training_phase(profile: bool) -> tuple[int, float]:
+def training_phase(profile: bool) -> tuple[int, float, float]:
     """The audioset_full train step at full width; returns the fbank
     kernel's launches in the step that is held to the plain fbank, and the
-    timed steps' clips/s."""
+    timed steps' clips/s and device ms."""
     cfg = train_config()
     batch = train_batch(cfg)
     sd = seeded_state_dict(SEEDS[0])
@@ -1188,7 +1223,7 @@ def training_phase(profile: bool) -> tuple[int, float]:
     fbank_at_train_batch(cfg, batch, draws, float(np.mean(device_ms)))
     if profile:
         profile_train_step(state, step, batch, gen, cfg)
-    return launches, STEP_BATCH / wall_ms * 1e3
+    return launches, STEP_BATCH / wall_ms * 1e3, float(np.mean(device_ms))
 
 
 def fbank_at_train_batch(cfg: PreprocessConfig, batch: dict, draws, step_ms: float):
@@ -1308,8 +1343,9 @@ def write_corpus(root: str, train_clips: int = TRAIN_CLIPS, val_clips: int = VAL
 class RecordingTrainer(Trainer):
     """The CLI's trainer, recording what each run sampled and drew: the
     train loader's indices by epoch, each step's draws (kept on the card,
-    so the run adds no host sync), and the fbank kernel's launch count when
-    each epoch starts and when its validation ends."""
+    so the run adds no host sync), the fbank kernel's launch count when
+    each epoch starts and when its validation ends, and the state a fresh
+    run starts from (``initial``, on the host)."""
 
     runs: list = []
 
@@ -1345,9 +1381,15 @@ class RecordingTrainer(Trainer):
         end of its validation."""
         return self.fbank_at["validated", epoch] - self.fbank_at["start", epoch]
 
+    def init_state(self):
+        state = super().init_state()
+        self.initial = {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()}
+        return state
+
     def draws(self, step, batch_size):
         d = super().draws(step, batch_size)
-        parts = [d.pre.mixup.gate, d.pre.mixup.lam, *d.pre.freq, *d.pre.time, d.keep]
+        parts = [d.pre.mixup.gate, d.pre.mixup.lam, *d.pre.freq, *d.pre.time]
+        parts += [] if d.keep is None else [d.keep]
         self.drawn[step] = torch.cat([x.flatten().float() for x in parts])
         return d
 
@@ -2257,6 +2299,281 @@ def fsd_phase(step_clips_s: float) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ---------------------------------------------------------------- phase 10
+
+# The ResNet50 and MobileNetV2 backbones (psla_tpu/models/resnet.py and
+# mobilenet.py, the reference's --model resnet|mbnet) at the audioset_full
+# widths: 527 classes, T=1056, 128 mels, float32 with TF32 off unless
+# stated. Serving and the tools on seeded members (seeded_state_dict), the
+# train step as phase 6 takes it, the trainer on phase 7's corpus writer.
+BACKBONES = ("resnet", "mbnet")
+BACKBONE_SEEDS = (41, 42)
+
+
+def ragged_dispatch(n: int, seed: int = 11):
+    """A full micro-batch of tone clips with three ragged lengths (a third of
+    the chunk, 5 s, nothing), zeros past each, and their means."""
+    rng = np.random.default_rng(seed)
+    wav = np.stack([tones(rng, n) for _ in range(BATCH)])
+    lengths = np.full(BATCH, n, np.int32)
+    lengths[1], lengths[2], lengths[3] = n // 3, 5 * SR, 0
+    for i in (1, 2, 3):
+        wav[i, lengths[i]:] = 0.0
+    mean = (wav.sum(axis=1) / np.maximum(lengths, 1)).astype(np.float32)
+    return wav, mean, lengths
+
+
+def backbone_serving(name: str, sds: list[dict], names: dict) -> int:
+    """(a) A 2-member ensemble through ``InferenceEngine.batch_probs`` at
+    micro-batch 16: one fbank launch a dispatch (counted), the probabilities
+    within 1e-4 of the same members on the plain fbank, then the clips/s of
+    full dispatches in float32 and bfloat16. Returns the launches."""
+    config = PreprocessConfig(target_length=TARGET)
+    engine = InferenceEngine([member(sd, torch.float32, name) for sd in sds], config, names,
+                             batch_size=BATCH, device=DEVICE)
+    engine.close()  # dispatches are called directly: no batcher thread
+    wav, mean, lengths = ragged_dispatch(engine.chunk_samples)
+    torch.cuda.synchronize()
+    fbank_cuda.LAUNCHES = 0
+    got = engine.batch_probs(wav, mean, lengths)
+    launches = fbank_cuda.LAUNCHES
+    with torch.inference_mode():
+        to = dict(device=DEVICE)
+        want = ensemble_probs(engine.members, torch.from_numpy(wav).to(**to),
+                              torch.from_numpy(mean).to(**to),
+                              torch.from_numpy(lengths).to(**to),
+                              dataclasses.replace(config, fbank_method="fft64")).cpu().numpy()
+    check(fbank_cuda.LAUNCHES == launches, "the plain fbank launched the kernel")
+    err = float(np.abs(got - want).max())
+    print(f"{name} serving ({arch(engine.members[0])}, {N_CLASS} classes, T={TARGET}, "
+          f"{len(sds)} members, batch {BATCH}, float32): fbank launches in one dispatch "
+          f"{launches}; vs the plain fbank ('fft64') max abs {err:.3e} (bar {SERVE_ATOL}); "
+          f"probabilities {got.min():.4f}..{got.max():.4f}, spread over clips "
+          f"{np.ptp(got, axis=0).max():.3e}")
+    check(launches == 1, f"{name}: {launches} fbank launches in one dispatch")
+    check(bool(np.all(np.isfinite(got)) and np.all((got > 0) & (got < 1))),
+          f"{name}: served probabilities not in (0, 1)")
+    check(err <= SERVE_ATOL, f"{name}: served probabilities off the plain fbank by {err}")
+    rate32, ms32, probs32 = dispatch_rate(engine, np.random.default_rng(11))
+    del engine
+    torch.cuda.empty_cache()
+    bf16 = InferenceEngine([member(sd, torch.bfloat16, name) for sd in sds], config, names,
+                           batch_size=BATCH, device=DEVICE)
+    bf16.close()
+    rate16, ms16, probs16 = dispatch_rate(bf16, np.random.default_rng(11))
+    check(bool(np.all(np.isfinite(probs16))), f"{name}: bfloat16 probabilities not finite")
+    print(f"{name} full {BATCH}-clip dispatch, {len(sds)} members: float32 {ms32:.2f} ms, "
+          f"{rate32:.1f} clips/s; bfloat16 {ms16:.2f} ms, {rate16:.1f} clips/s, max abs vs "
+          f"float32 {float(np.abs(probs16 - probs32).max()):.3e} ({card()})")
+    return launches
+
+
+def backbone_train_step(name: str, b2: tuple[float, float], profile: bool) -> int:
+    """(b) The audioset_full train step (mixup 0.5, SpecAugment 48/192, Adam
+    past warmup; no drop-connect in these backbones) at batch STEP_BATCH:
+    one step through the kernel held to the plain fbank's at phase 6's
+    bars, then 2 warm-up and 10 timed steps beside phase 6's B2 step
+    (``b2``: its device ms and clips/s). Returns the fbank launches in the
+    held step."""
+    cfg = train_config()
+    sd = seeded_state_dict(BACKBONE_SEEDS[0], model=name)
+    batch = train_batch(cfg)
+    state, _, _, step, gen, _ = step_held_to_plain(
+        cfg, batch, lambda: train_state(sd, model_name=name), f"{name} train step")
+    state, device_ms, wall_ms, peak, losses = timed_steps(step, state, batch, gen, cfg)
+    print(f"{name} train step ({arch(state.model)}, batch {STEP_BATCH}), {TIMED_STEPS} "
+          f"steps after {WARM_STEPS} warm-up: device {np.mean(device_ms):.2f} ms/step "
+          f"(CUDA events; {min(device_ms):.2f}-{max(device_ms):.2f}), wall {wall_ms:.2f} ms/step, "
+          f"{STEP_BATCH / wall_ms * 1e3:.1f} clips/s; peak memory {peak / 2**30:.2f} GiB; losses "
+          f"{losses[0]:.4f} .. {losses[-1]:.4f}; phase 6's B2 step in this call: device "
+          f"{b2[0]:.2f} ms/step, {b2[1]:.1f} clips/s at batch {STEP_BATCH} ({card()})")
+    if profile:
+        profile_train_step(state, step, batch, gen, cfg)
+    return 1  # checked in step_held_to_plain
+
+
+def backbone_tools(name: str, sds: list[dict], root: str, eval_json: str) -> int:
+    """(c) psla-torch-predict on a 60 s clip within 1e-4 of ``predict_long``
+    on the plain fbank (ResNet through the pooling statistics, MBNet
+    through the length-weighted fallback); ``tools/ensemble.main`` on 2
+    saved members (one with DataParallel prefixes), stacked and
+    ``--sequential``, within 1e-5 of each other, launches counted as in
+    phase 8; ``convert_ckpt`` round-trips a member. Returns the launches."""
+    label_csv = assets.label_csv_for("audioset")
+    paths = []
+    for i, sd in enumerate(sds):
+        path = os.path.join(root, f"{name}_{i}.pth")
+        torch.save({f"module.{k}": v for k, v in sd.items()} if i == 0 else sd, path)
+        paths.append(path)
+    width = ["--model", name, "--target_length", str(TARGET), "--device", DEVICE]
+    launches = 0
+
+    clip_path = os.path.join(root, f"{name}_long60s.wav")
+    with open(clip_path, "wb") as f:
+        f.write(wav_bytes(tones(np.random.default_rng(13), PREDICT_SECONDS * SR), SR))
+    got, secs, n, _ = timed_tool(lambda: predict_tool.run(
+        [clip_path, "--ckpt", paths[1], "--label-csv", label_csv] + width))
+    launches += n
+    wav = decode_wav(open(clip_path, "rb").read())[0]
+    want = predict_long(member(sds[1], torch.float32, name).to(DEVICE), wav,
+                        PreprocessConfig(target_length=TARGET, fbank_method="fft64"),
+                        device=DEVICE)
+    err = float(np.abs(got[clip_path] - want).max())
+    chunks = -(-wav.size // PreprocessConfig(target_length=TARGET).fbank.buffer_length(TARGET))
+    print(f"{name} psla-torch-predict, {PREDICT_SECONDS} s clip ({chunks} chunks, "
+          f"{'pooling statistics' if name == 'resnet' else 'length-weighted chunks'}): "
+          f"{secs:.3f} s; max abs vs the plain fbank's predict_long {err:.3e} (bar "
+          f"{PREDICT_ATOL}); fbank launches {n}")
+    check(err <= PREDICT_ATOL, f"{name} predict vs plain predict_long: {err}")
+    check(n == -(-chunks // 8), f"{name} predict: {n} fbank launches")
+
+    argv = paths + ["--data-eval", eval_json, "--label-csv", label_csv, "--preset",
+                    "audioset_full", "--batch-size", str(EVAL_BATCH)] + width
+    n_batches = -(-EVAL_CLIPS // EVAL_BATCH)
+    preds = {}
+    for mode, extra in (("stacked", []), ("sequential", ["--sequential"])):
+        out = os.path.join(root, f"{name}_{mode}")
+        rc, secs, n, _ = timed_tool(lambda: ensemble_tool.main(argv + ["--out-dir", out] + extra))
+        check(rc == 0, f"{name} ensemble {mode}: exit {rc}")
+        preds[mode] = np.stack([np.loadtxt(os.path.join(out, f"predictions_{i}.csv"),
+                                           delimiter=",") for i in range(len(paths))])
+        want_n = n_batches * (1 if mode == "stacked" else len(paths))
+        print(f"{name} ensemble {mode} (tools/ensemble.main, {len(paths)} members, "
+              f"{EVAL_CLIPS} clips, batch {EVAL_BATCH}): {secs:.3f} s, fbank launches {n} "
+              f"(want {want_n})")
+        check(n == want_n, f"{name} ensemble {mode}: {n} fbank launches, want {want_n}")
+        check(preds[mode].shape == (len(paths), EVAL_CLIPS, N_CLASS)
+              and bool(np.all(np.isfinite(preds[mode]))), f"{name} ensemble {mode} predictions")
+        launches += n
+    err = float(np.abs(preds["stacked"] - preds["sequential"]).max())
+    print(f"{name} ensemble: stacked vs sequential max abs {err:.3e} (bar {ENSEMBLE_ATOL})")
+    check(err <= ENSEMBLE_ATOL, f"{name} stacked vs sequential: {err}")
+
+    out = os.path.join(root, f"{name}_converted.pth")
+    check(convert_tool.main(["--pth", paths[0], "--model", name, "--n-class", str(N_CLASS),
+                             "--out", out]) == 0, f"{name} convert_ckpt")
+    back = torch.load(out, weights_only=True)
+    check(back.keys() == sds[0].keys() and all(torch.equal(back[k], sds[0][k]) for k in back),
+          f"{name} convert_ckpt did not round-trip the member")
+    print(f"{name} convert_ckpt: the member round-trips exactly ({len(back)} entries)")
+    return launches
+
+
+def torchvision_resnet50(sd: dict, seed: int = 43) -> dict:
+    """A ResNetAttention state_dict laid out as torchvision's ImageNet
+    resnet50 file: no ``model.`` prefix, a seeded 3-channel ``conv1``, an
+    ``fc`` classifier, no attention head."""
+    rng = np.random.default_rng(seed)
+    out = {k[len("model."):]: v for k, v in sd.items() if k.startswith("model.")}
+    out["conv1.weight"] = torch.from_numpy(
+        rng.normal(0.0, 0.1, (64, 3, 7, 7)).astype(np.float32))
+    out["fc.weight"] = torch.zeros(1000, 2048)
+    out["fc.bias"] = torch.zeros(1000)
+    return out
+
+
+def backbone_trainer(root: str, train_json: str, val_json: str) -> int:
+    """(d) ``cli.run --model resnet`` for 1 epoch from ``impretrain`` with a
+    seeded torchvision-layout ``resnet50-seeded.pth`` named by
+    PSLA_TPU_IMAGENET_CKPT: the run's initial stem is the fresh init's and
+    every other backbone entry the file's; the fbank launches are the train
+    steps plus the eval batches; the CSVs finite; the wa checkpoint serves.
+    Returns the launches."""
+    imagenet = torchvision_resnet50(seeded_state_dict(BACKBONE_SEEDS[1], model="resnet"))
+    path = os.path.join(root, "resnet50-seeded.pth")
+    torch.save(imagenet, path)
+    exp = os.path.join(root, "exp_resnet")
+    argv = ["--preset", "audioset_full", "--model", "resnet", "--data-train", train_json,
+            "--data-val", val_json, "--data-eval", val_json, "--label-csv",
+            assets.label_csv_for("audioset"), "--exp-dir", exp, "--warmup", "False",
+            "--n-epochs", "1", "--wa_start", "1", "--wa_end", "1", "--target_length",
+            str(TARGET), "-b", str(STEP_BATCH), "--device", DEVICE]
+    before = os.environ.get(CKPT_ENV)
+    os.environ[CKPT_ENV] = path
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fbank_cuda.LAUNCHES = 0
+        t0 = time.perf_counter()
+        run = run_cli(argv)
+        torch.cuda.synchronize()
+        launches, wall = fbank_cuda.LAUNCHES, time.perf_counter() - t0
+    finally:
+        if before is None:
+            os.environ.pop(CKPT_ENV)
+        else:
+            os.environ[CKPT_ENV] = before
+    check(run.config.impretrain, "impretrain is not the preset's default")
+    fresh = run._new_model().state_dict()
+    stem_fresh = torch.equal(run.initial["model.conv1.weight"], fresh["model.conv1.weight"])
+    from_file = all(torch.equal(run.initial[f"model.{k}"], v) for k, v in imagenet.items()
+                    if f"model.{k}" in run.initial and k != "conv1.weight")
+    head_fresh = all(torch.equal(run.initial[k], fresh[k]) for k in fresh
+                     if k.startswith("attention."))
+    n_file = sum(f"model.{k}" in run.initial for k in imagenet) - 1
+    spe, vb = run.steps_per_epoch, run.val_loader.batches_per_epoch()
+    eb = run.eval_loader.batches_per_epoch()
+    want = spe + vb + vb + 2 * (vb + eb) + eb  # as fsd_trainer counts them
+    secs = run.train_seconds[1]
+    print(f"psla-torch-train --model resnet (cli.run, audioset_full: ResNet50, {N_CLASS} "
+          f"classes, T={TARGET}, batch {STEP_BATCH}, float32, mixup, SpecAugment, bal) from "
+          f"{CKPT_ENV}: initial stem the fresh init's {stem_fresh}, {n_file} backbone entries "
+          f"the file's {from_file}, attention head fresh {head_fresh}; 1 epoch of {spe} steps "
+          f"in {secs:.3f} s of train loop ({spe * STEP_BATCH / secs:.1f} clips/s), {wall:.2f} s "
+          f"in all; fbank launches {launches} (train steps {spe} + eval batches "
+          f"{want - spe}); peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          f"({card()})")
+    check(stem_fresh and from_file and head_fresh, "the ImageNet init is not stem-fresh, "
+                                                   "file-backbone, head-fresh")
+    check(launches == want, f"resnet trainer: {launches} fbank launches, want {want}")
+    for name in ("result.csv", "predictions/target.csv", "predictions/predictions_1.csv",
+                 "predictions/predictions_eval_1.csv", "wa_result.csv",
+                 "best_single_result.csv", "ensemble_result.csv"):
+        values = np.loadtxt(os.path.join(exp, name), delimiter=",")
+        check(values.size > 0 and bool(np.all(np.isfinite(values))), f"{name}: not finite")
+    model = create_model("resnet", label_dim=N_CLASS)
+    model.load_state_dict(load_variables(os.path.join(exp, "models", "wa")))
+    engine = InferenceEngine([model], PreprocessConfig(target_length=TARGET),
+                             make_name_dict(assets.label_csv_for("audioset")), batch_size=4,
+                             device=DEVICE)
+    try:
+        probs = engine.predict(decode_wav(open(os.path.join(root, "val_0000.wav"), "rb")
+                                          .read())[0], SR)
+    finally:
+        engine.close()
+    check(probs.shape == (N_CLASS,) and bool(np.all(np.isfinite(probs))),
+          "the resnet wa checkpoint served non-finite probabilities")
+    print(f"resnet wa checkpoint served: probabilities {probs.min():.4f}..{probs.max():.4f}")
+    return launches
+
+
+def backbones_phase(b2: tuple[float, float], profile: bool) -> dict:
+    """Phase 10: ResNetAttention and MBNet on the card. Returns the fbank
+    kernel's launches on each of their paths."""
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="psla_backbones_")
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        train_json, val_json, _ = write_corpus(root, val_clips=EVAL_CLIPS)
+        print(f"phase 10 corpus: {TRAIN_CLIPS} train and {EVAL_CLIPS} val clips written in "
+              f"{time.perf_counter() - t0:.2f} s")
+        names = make_name_dict(assets.label_csv_for("audioset"))
+        for name in BACKBONES:
+            sds = [seeded_state_dict(s, model=name) for s in BACKBONE_SEEDS]
+            out[f"launches_{name}_serving"] = backbone_serving(name, sds, names)
+            torch.cuda.empty_cache()
+            out[f"launches_{name}_train_step"] = backbone_train_step(name, b2, profile)
+            torch.cuda.empty_cache()
+            out[f"launches_{name}_tools"] = backbone_tools(name, sds, root, val_json)
+            torch.cuda.empty_cache()
+        out["launches_resnet_trainer_run"] = backbone_trainer(root, train_json, val_json)
+        print(f"phase 10: {time.perf_counter() - t_phase:.1f} s; fbank launches {out}")
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -2277,7 +2594,7 @@ def main(argv=None) -> int:
     record["launches"] = serving_phase(args.profile)
     records = [record] + mbconv_phase()
     torch.cuda.empty_cache()
-    record["launches_per_train_step"], step_clips_s = training_phase(args.profile)
+    record["launches_per_train_step"], step_clips_s, step_ms = training_phase(args.profile)
     torch.cuda.empty_cache()
     record["launches_trainer_run"], record["launches_per_epoch"] = trainer_phase(
         args.profile, step_clips_s)
@@ -2285,6 +2602,8 @@ def main(argv=None) -> int:
     record["launches_eval_side"], _ = eval_phase(args.profile)
     torch.cuda.empty_cache()
     record.update(fsd_phase(step_clips_s))
+    torch.cuda.empty_cache()
+    record.update(backbones_phase((step_ms, step_clips_s), args.profile))
     for r in records:
         check(r["launches"] > 0, f"kernel {r['name']} was not launched on its path")
     print(f"total {time.perf_counter() - t0:.1f} s")

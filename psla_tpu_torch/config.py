@@ -138,7 +138,7 @@ class ExperimentConfig:
 
 def unported(cfg: ExperimentConfig):
     """Raise for a setting whose code the port does not have yet, naming
-    its ROADMAP item (as ``models.create_model`` does for ResNet)."""
+    its ROADMAP item."""
     later = (
         ((cfg.num_devices or 1) > 1, "--num-devices over 1", "item 6 (data parallelism)"),
         (cfg.ensemble_seeds > 1, "--ensemble-seeds over 1", "item 7 (multi-seed ensemble)"),

@@ -1,7 +1,8 @@
 """Weights into the port: reference checkpoints and JAX-package variables.
 
 The port's state_dict has the reference's key layout (efficientnet_pytorch
-names plus the per-head pooling convs), the layout
+names plus the per-head pooling convs; torchvision's resnet50 and
+mobilenet_v2 names under ``model.``), the layout
 ``psla_tpu/models/convert.py`` reads. So:
 
   * a reference ``.pth`` loads with ``load_state_dict`` after
@@ -9,13 +10,15 @@ names plus the per-head pooling convs), the layout
     ``_fc`` and ``num_batches_tracked`` entries dropped);
   * ``from_jax_variables`` turns a ``{'params', 'batch_stats'}`` tree of
     numpy arrays from the JAX package into such a state_dict (the inverse of
-    ``psla_tpu.models.convert.convert_effnet_attention``): HWIO kernels to
+    ``psla_tpu.models.convert``'s converters): HWIO kernels to
     OIHW, depthwise ``[k,k,1,C]`` to ``[C,1,k,k]``, the fused DenseGeneral
     head kernel ``[C, H, 2, n_out]`` to per-head ``att.{h}`` / ``cla.{h}``
     convs, BN scale/bias/mean/var to weight/bias/running_mean/running_var;
   * ``convert_imagenet_backbone`` puts an ImageNet efficientnet_pytorch
     backbone (3-channel stem, ``_fc`` classifier, no pooling head) over a
-    fresh model's state_dict, the ``impretrain=True`` path.
+    fresh model's state_dict, the ``impretrain=True`` path;
+    ``convert_imagenet_resnet`` and ``convert_imagenet_mbnet`` do the same
+    with torchvision's resnet50 and mobilenet_v2 files.
 """
 
 from __future__ import annotations
@@ -58,7 +61,11 @@ def _head_conv(w: np.ndarray) -> np.ndarray:
 def from_jax_variables(
     variables: Mapping[str, Any], label_dim: int
 ) -> dict[str, torch.Tensor]:
-    """JAX EffNetAttention variables -> state_dict in the reference layout."""
+    """JAX EffNetAttention, ResNetAttention or MBNet variables -> state_dict
+    in the reference layout (the inverse of ``psla_tpu.models.convert``'s
+    ``convert_effnet_attention``, ``convert_resnet_attention`` and
+    ``convert_mbnet``). The family is read from the top-level ``params``
+    keys: ``effnet``, ``resnet``, or ``stem`` with ``classifier``."""
     params, stats = variables["params"], variables.get("batch_stats", {})
     sd: dict[str, np.ndarray] = {}
 
@@ -73,7 +80,31 @@ def from_jax_variables(
         sd[f"{key}.running_mean"] = _np(s["mean"])
         sd[f"{key}.running_var"] = _np(s["var"])
 
-    ep, es = params["effnet"], stats["effnet"]
+    def conv_bn(conv_key: str, bn_key: str, p: Mapping, s: Mapping):
+        """A flax ConvBN module's {conv, bn} pair."""
+        conv(conv_key, p["conv"])
+        bn(bn_key, p["bn"], s["bn"])
+
+    if "effnet" in params:
+        _effnet_backbone(params["effnet"], stats["effnet"], conv, bn)
+    elif "resnet" in params:
+        _resnet_backbone(params["resnet"], stats["resnet"], conv_bn)
+    elif "stem" in params and "classifier" in params:
+        _mbnet_backbone(params, stats, conv_bn)
+        sd["model.classifier.weight"] = _np(params["classifier"]["kernel"]).T
+        sd["model.classifier.bias"] = _np(params["classifier"]["bias"])
+    else:
+        raise ValueError(f"unknown variable tree: params holds {sorted(params)[:6]}")
+
+    if "attention" in params:
+        _attention_head(params["attention"], sd)
+    n_out = _np(_head_bias(params)).shape[-1]
+    if n_out != label_dim:
+        raise ValueError(f"head has {n_out} classes, expected {label_dim}")
+    return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+
+
+def _effnet_backbone(ep: Mapping, es: Mapping, conv, bn):
     conv("effnet._conv_stem", ep["stem"]["conv"])
     bn("effnet._bn0", ep["stem"]["bn"], es["stem"]["bn"])
     blocks = sorted(int(k[len("block_"):]) for k in ep if k.startswith("block_"))
@@ -92,7 +123,41 @@ def from_jax_variables(
     conv("effnet._conv_head", ep["head"]["conv"])
     bn("effnet._bn1", ep["head"]["bn"], es["head"]["bn"])
 
-    att = params["attention"]
+
+def _resnet_backbone(rp: Mapping, rs: Mapping, conv_bn):
+    """torchvision's resnet50 keys: conv1/bn1 the stem, layer{s}.{j} for
+    flax's layer{s}_{j}."""
+    conv_bn("model.conv1", "model.bn1", rp["stem"], rs["stem"])
+    for name in rp:
+        if not name.startswith("layer"):
+            continue
+        stage, j = name[len("layer"):].split("_")
+        t = f"model.layer{stage}.{j}"
+        for c in (1, 2, 3):
+            conv_bn(f"{t}.conv{c}", f"{t}.bn{c}", rp[name][f"conv{c}"], rs[name][f"conv{c}"])
+        if "downsample" in rp[name]:
+            conv_bn(f"{t}.downsample.0", f"{t}.downsample.1", rp[name]["downsample"],
+                    rs[name]["downsample"])
+
+
+def _mbnet_backbone(mp: Mapping, ms: Mapping, conv_bn):
+    """torchvision's mobilenet_v2 keys: features.0 the stem, features.{i}
+    for block i - 1, features.18 the head."""
+    conv_bn("model.features.0.0", "model.features.0.1", mp["stem"], ms["stem"])
+    blocks = sorted(int(k[len("block_"):]) for k in mp if k.startswith("block_"))
+    for i in blocks:
+        bp, bs, base = mp[f"block_{i}"], ms[f"block_{i}"], f"model.features.{i + 1}.conv"
+        parts = (["expand"] if "expand" in bp else []) + ["depthwise"]
+        for j, part in enumerate(parts):
+            conv_bn(f"{base}.{j}.0", f"{base}.{j}.1", bp[part], bs[part])
+        n = len(parts)
+        conv_bn(f"{base}.{n}", f"{base}.{n + 1}", bp["project"], bs["project"])
+    conv_bn(f"model.features.{len(blocks) + 1}.0", f"model.features.{len(blocks) + 1}.1",
+            mp["head"], ms["head"])
+
+
+def _attention_head(att: Mapping, sd: dict):
+    """The fused pooling kernels -> the reference's per-head convs."""
     if "heads" in att:  # MultiHeadAttentionPool: kernel [C, H, 2, n_out]
         kernel, bias = _np(att["heads"]["kernel"]), _np(att["heads"]["bias"])
         for h in range(kernel.shape[1]):
@@ -109,11 +174,14 @@ def from_jax_variables(
         sd["attention.cla.weight"] = _head_conv(_np(att["cla"]["kernel"]))
         sd["attention.cla.bias"] = _np(att["cla"]["bias"])
 
-    n_out = sd["attention.cla.bias" if "attention.cla.bias" in sd
-               else "attention.cla.0.bias"].shape[-1]
-    if n_out != label_dim:
-        raise ValueError(f"head has {n_out} classes, expected {label_dim}")
-    return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+
+def _head_bias(params: Mapping):
+    """The bias of the layer that gives the classes: a pooling head's or
+    MBNet's classifier's."""
+    if "classifier" in params:
+        return params["classifier"]["bias"]
+    att = params["attention"]
+    return (att.get("heads") or att.get("att_cla") or att["cla"])["bias"]
 
 
 STEM = "effnet._conv_stem.weight"
@@ -146,20 +214,55 @@ def convert_imagenet_backbone(
             sd[STEM] = sd[STEM].sum(dim=1, keepdim=True)
         else:
             sd[STEM] = init_state_dict[STEM]
-    return _merge_into_init(init_state_dict,
-                            {k: v for k, v in sd.items() if k.startswith("effnet.")})
+    return _merge_into_init(init_state_dict, sd, "effnet.")
+
+
+def _torchvision_keys(state_dict: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """A torchvision ImageNet state_dict under the reference's ``model.``
+    prefix (added where no key has it)."""
+    sd = normalize_state_dict(state_dict)
+    if not any(k.startswith("model.") for k in sd):
+        sd = {f"model.{k}": v for k, v in sd.items()}
+    return sd
+
+
+def convert_imagenet_resnet(
+    state_dict: Mapping[str, Any], init_state_dict: Mapping[str, torch.Tensor]
+) -> dict[str, torch.Tensor]:
+    """Raw torchvision resnet50 ImageNet weights -> a state_dict of
+    ResNetAttention (``psla_tpu.models.convert.convert_imagenet_resnet``).
+    The reference swaps ``conv1`` for a fresh 1-channel conv (Models.py:18),
+    so the stem comes from ``init_state_dict``, and so does the attention
+    head; ``fc`` is dropped; the rest is the file's."""
+    sd = _torchvision_keys(state_dict)
+    return _merge_into_init(init_state_dict, sd, "model.", fresh=("model.conv1.weight",))
+
+
+def convert_imagenet_mbnet(
+    state_dict: Mapping[str, Any], init_state_dict: Mapping[str, torch.Tensor]
+) -> dict[str, torch.Tensor]:
+    """Raw torchvision mobilenet_v2 ImageNet weights -> a state_dict of MBNet
+    (``psla_tpu.models.convert.convert_imagenet_mbnet``). The reference swaps
+    ``features[0][0]`` for a fresh 1-channel conv and the classifier for a
+    fresh Linear (Models.py:51-52): both come from ``init_state_dict``;
+    torchvision's ``classifier.1`` is dropped; the rest is the file's."""
+    sd = _torchvision_keys(state_dict)
+    return _merge_into_init(init_state_dict, sd, "model.features.",
+                            fresh=("model.features.0.0.weight",))
 
 
 def _merge_into_init(init_state_dict: Mapping[str, torch.Tensor],
-                     backbone: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
-    """The fresh state_dict with every backbone entry replaced by the file's
-    (anything else, the pooling head, stays fresh). A backbone entry the
-    file lacks, or holds at another shape, raises: nothing of the backbone
-    keeps its random initialisation."""
+                     backbone: Mapping[str, torch.Tensor], prefix: str,
+                     fresh: tuple[str, ...] = ()) -> dict[str, torch.Tensor]:
+    """The fresh state_dict with every backbone entry (a key under ``prefix``
+    that is not ``fresh``) replaced by the file's; anything else, the
+    pooling head or the classifier, stays fresh. A backbone entry the file
+    lacks, or holds at another shape, raises: nothing of the backbone keeps
+    its random initialisation."""
     out = dict(init_state_dict)
     missing, wrong = [], []
     for k, v in init_state_dict.items():
-        if not k.startswith("effnet."):
+        if not k.startswith(prefix) or k in fresh:
             continue
         if k not in backbone:
             missing.append(k)
@@ -169,7 +272,7 @@ def _merge_into_init(init_state_dict: Mapping[str, torch.Tensor],
             out[k] = backbone[k].to(v.dtype)
     if missing or wrong:
         raise ValueError(
-            "the ImageNet checkpoint does not fit this backbone (another "
+            "the ImageNet checkpoint does not fit this backbone (another model or "
             f"EfficientNet size?): {len(missing)} entries missing {missing[:4]}, "
             f"{len(wrong)} of other shapes {wrong[:4]}")
     return out
@@ -186,10 +289,20 @@ def _unflatten(flat: Mapping[str, np.ndarray]) -> dict:
     return tree
 
 
+def model_family(state_dict: Mapping[str, Any]) -> str:
+    """The model (``create_model``'s name) a state_dict in the reference
+    layout holds: its stem's key tells."""
+    if "effnet._conv_stem.weight" in state_dict:
+        return "efficientnet"
+    if "model.conv1.weight" in state_dict:
+        return "resnet"
+    if "model.features.0.0.weight" in state_dict:
+        return "mbnet"
+    raise ValueError("no EfficientNet, ResNet50 or MobileNetV2 stem in the state_dict")
+
+
 def _label_dim(variables: Mapping) -> int:
-    att = variables["params"]["attention"]
-    part = att.get("heads") or att.get("att_cla") or att["cla"]
-    return int(np.shape(part["bias"])[-1])
+    return int(np.shape(_head_bias(variables["params"]))[-1])
 
 
 # the file a training checkpoint directory (models/{epoch_N,best,wa} of

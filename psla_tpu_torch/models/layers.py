@@ -1,4 +1,5 @@
-"""Shared building blocks: TF-SAME convolutions, BatchNorm, drop-connect.
+"""Shared building blocks: TF-SAME and torch-padded convolutions, BatchNorm,
+drop-connect.
 
 Port of ``psla_tpu/models/layers.py``. Layout is NCHW (PyTorch's), against
 the JAX package's NHWC; the state_dict keeps the reference's
@@ -49,6 +50,14 @@ def same_padding(size: int, kernel: int, stride: int) -> tuple[int, int]:
     return total // 2, total - total // 2
 
 
+def _he_normal_fan_out_(conv: nn.Conv2d, generator: torch.Generator | None):
+    """He-normal over fan-out (the JAX package's conv_kernel_init), zero bias."""
+    fan_out = conv.out_channels * conv.kernel_size[0] * conv.kernel_size[1]
+    nn.init.normal_(conv.weight, 0.0, math.sqrt(2.0 / fan_out), generator=generator)
+    if conv.bias is not None:
+        nn.init.zeros_(conv.bias)
+
+
 class SameConv2d(nn.Conv2d):
     """Conv2d with TF-SAME padding computed from the input's extent."""
 
@@ -58,12 +67,7 @@ class SameConv2d(nn.Conv2d):
                          groups=groups, bias=bias)
 
     def reset_parameters(self, generator: torch.Generator | None = None):
-        """He-normal over fan-out (the JAX package's conv_kernel_init)."""
-        fan_out = self.out_channels * self.kernel_size[0] * self.kernel_size[1]
-        nn.init.normal_(self.weight, 0.0, math.sqrt(2.0 / fan_out),
-                        generator=generator)
-        if self.bias is not None:
-            nn.init.zeros_(self.bias)
+        _he_normal_fan_out_(self, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         k, s = self.kernel_size[0], self.stride[0]
@@ -77,18 +81,42 @@ class SameConv2d(nn.Conv2d):
         return F.conv2d(x, w, b, s, 0, 1, self.groups)
 
 
+class PadConv2d(nn.Conv2d):
+    """Conv2d without bias, padded symmetrically by ``pad`` (torchvision's
+    ResNet50 and MobileNetV2, ``nn.Conv(padding=((pad, pad), (pad, pad)))``
+    in the JAX package), computing in ``dtype``: the input and the weight
+    are cast to it at the point of use, as flax's ``nn.Conv(dtype=...)``
+    does, whatever dtype the input arrives in."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel: int,
+                 stride: int = 1, pad: int = 0, groups: int = 1,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(in_channels, out_channels, kernel, stride, pad,
+                         groups=groups, bias=False)
+        self.compute_dtype = dtype
+
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        _he_normal_fan_out_(self, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv2d(x.to(self.compute_dtype), self.weight.to(self.compute_dtype),
+                        None, self.stride, self.padding, 1, self.groups)
+
+
 class BatchNorm(nn.Module):
-    """BatchNorm2d with eps 1e-3: running statistics in eval mode (the
-    mode it starts in), batch statistics in train mode.
+    """BatchNorm2d (eps 1e-3 and momentum 0.01 by default, EfficientNet's):
+    running statistics in eval mode (the mode it starts in), batch
+    statistics in train mode.
 
     Keys match ``nn.BatchNorm2d`` (weight, bias, running_mean, running_var)
     without ``num_batches_tracked``, which ``convert.normalize_state_dict``
     drops from reference checkpoints. Statistics and affine parameters stay
     float32 whatever the activation dtype.
 
-    Eval: a float32 input takes one ``addcmul`` with the folded scale and
-    shift; any other dtype is computed in float32 in flax's order,
-    ``(x - mean) * mul + bias``, and rounded once to the input's dtype, as
+    Eval: an input in the parameters' dtype (float32) takes one ``addcmul``
+    with the folded scale and shift; any other dtype is computed in float32
+    in flax's order, ``(x - mean) * mul + bias``, and rounded once to the
+    input's dtype, as
     ``flax.linen.normalization._normalize`` does (rounding the folded scale
     and shift first loses the result where ``x * mul`` and the shift
     cancel, as they do for large running means).
@@ -105,12 +133,19 @@ class BatchNorm(nn.Module):
     rounding, which grows with n. While ``replaying``
     (the recomputed forward of a rematerialized block) the statistics are
     folded into copies, so a step updates the buffers once.
+
+    ``float_out``: return the parameters' dtype, float32, whatever the
+    input's (flax's ``BatchNorm(dtype=jnp.float32)``, as the JAX ResNet50
+    and MobileNetV2 build it). EfficientNet's BatchNorm rounds to the
+    input's dtype (``dtype=self.dtype`` there).
     """
 
-    def __init__(self, num_features: int, eps: float = BN_EPS):
+    def __init__(self, num_features: int, eps: float = BN_EPS,
+                 momentum: float = BN_MOMENTUM, float_out: bool = False):
         super().__init__()
         self.eps = eps
-        self.momentum = BN_MOMENTUM  # create_model(bn_momentum=...) sets it
+        self.momentum = momentum  # create_model(bn_momentum=...) sets EfficientNet's
+        self.float_out = float_out
         self.replaying = False
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
@@ -123,14 +158,16 @@ class BatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
             if self.replaying:
                 mean, var = mean.clone(), var.clone()
-            return F.batch_norm(x, mean, var, self.weight, self.bias, True,
-                                self.momentum, self.eps)
+            y = F.batch_norm(x, mean, var, self.weight, self.bias, True,
+                             self.momentum, self.eps)
+            return y.to(self.weight.dtype) if self.float_out else y
         mul = self.weight * torch.rsqrt(self.running_var + self.eps)
-        if x.dtype == torch.float32:
+        if x.dtype == mul.dtype:
             shift = self.bias - self.running_mean * mul
             return torch.addcmul(shift[:, None, None], x, mul[:, None, None])
-        y = (x.float() - self.running_mean[:, None, None]) * mul[:, None, None]
-        return (y + self.bias[:, None, None]).to(x.dtype)
+        y = (x.to(mul.dtype) - self.running_mean[:, None, None]) * mul[:, None, None]
+        y = y + self.bias[:, None, None]
+        return y if self.float_out else y.to(x.dtype)
 
 
 def drop_connect(x: torch.Tensor, keep: torch.Tensor, rate: float) -> torch.Tensor:

@@ -10,7 +10,8 @@ init).
 The heads keep the reference's per-head ``att.{h}`` / ``cla.{h}`` 1x1 convs,
 so the state_dict has its keys; the forward stacks them into one
 ``[H*2*n_out, C]`` product. Inputs are the time-major features ``[B, T, C]``.
-The sigmoid, the clamp and every sum run in float32.
+The sigmoid, the clamp and every sum run in float32 (float64 in a model
+cast to float64).
 
 ``return_stats=True`` returns the streaming partial sums
 ``{"s1": [B, H, n_out], "s0": [B, H, n_out], "head_weight": [H]}``: every
@@ -42,10 +43,11 @@ def _psla_uniform_(conv: nn.Conv2d, generator: torch.Generator | None):
 
 
 def _project(x: torch.Tensor, convs: list[nn.Conv2d]) -> torch.Tensor:
-    """[B, T, C] through the stacked 1x1 convs -> sigmoid [B, T, len*n_out] f32."""
+    """[B, T, C] through the stacked 1x1 convs -> sigmoid [B, T, len*n_out],
+    float32 or wider."""
     w = torch.cat([c.weight[:, :, 0, 0] for c in convs]).to(x.dtype)
     b = torch.cat([c.bias for c in convs]).to(x.dtype)
-    return torch.sigmoid(F.linear(x, w, b).float())
+    return torch.sigmoid(F.linear(x, w, b).to(torch.promote_types(x.dtype, torch.float32)))
 
 
 class MultiHeadAttentionPool(nn.Module):

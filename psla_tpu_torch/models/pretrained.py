@@ -9,14 +9,12 @@ The reference loads ImageNet weights through
   2. the ``PSLA_TPU_IMAGENET_CKPT`` environment variable names a file;
   3. the cache directories are searched for the standard file names
      (``efficientnet-b{N}-*.pth`` of lukemelas/EfficientNet-PyTorch, or its
-     AdvProp release), torch hub's cache included, so weights the reference
-     or the JAX package already fetched are found here too;
+     AdvProp release; torchvision's ``resnet50-*.pth`` and
+     ``mobilenet_v2-*.pth``), torch hub's cache included, so weights the
+     reference or the JAX package already fetched are found here too;
   4. otherwise ``MissingPretrainedError`` says how to provide the file and
      names its canonical URL. The port downloads nothing, and never falls
      back to a random initialisation.
-
-Only EfficientNet is ported; ResNet and MobileNet wait for their backbones
-(ROADMAP.md, Queue 1, item 8).
 """
 
 from __future__ import annotations
@@ -27,7 +25,11 @@ from typing import Mapping
 
 import torch
 
-from psla_tpu_torch.models.convert import convert_imagenet_backbone
+from psla_tpu_torch.models.convert import (
+    convert_imagenet_backbone,
+    convert_imagenet_mbnet,
+    convert_imagenet_resnet,
+)
 
 __all__ = [
     "MissingPretrainedError",
@@ -44,7 +46,8 @@ CACHE_ENV = "PSLA_TPU_CACHE"
 _EFFNET_RELEASE = (
     "https://github.com/lukemelas/EfficientNet-PyTorch/releases/download"
 )
-# efficientnet_pytorch's url_map: the files Models.py:69-72 downloads
+# efficientnet_pytorch's url_map (the files Models.py:69-72 downloads) and
+# torchvision's model zoo (Models.py:18, 51); named in the error, never fetched
 IMAGENET_URLS = {
     ("efficientnet", 0): f"{_EFFNET_RELEASE}/1.0/efficientnet-b0-355c32eb.pth",
     ("efficientnet", 1): f"{_EFFNET_RELEASE}/1.0/efficientnet-b1-f1951068.pth",
@@ -54,6 +57,8 @@ IMAGENET_URLS = {
     ("efficientnet", 5): f"{_EFFNET_RELEASE}/1.0/efficientnet-b5-b6417697.pth",
     ("efficientnet", 6): f"{_EFFNET_RELEASE}/1.0/efficientnet-b6-c76e70fd.pth",
     ("efficientnet", 7): f"{_EFFNET_RELEASE}/1.0/efficientnet-b7-dcc49843.pth",
+    ("resnet", None): "https://download.pytorch.org/models/resnet50-19c8e357.pth",
+    ("mbnet", None): "https://download.pytorch.org/models/mobilenet_v2-b0353104.pth",
 }
 
 
@@ -61,18 +66,15 @@ class MissingPretrainedError(RuntimeError):
     """impretrain=True but no ImageNet weights could be resolved."""
 
 
-def _require_efficientnet(model: str):
-    if model in ("resnet", "mbnet"):
-        raise NotImplementedError(
-            f"ImageNet weights for {model!r} are not ported yet: ROADMAP.md, Queue 1, "
-            "'ResNet and MobileNet backbones'")
-    if model != "efficientnet":
-        raise ValueError(f"unknown model {model!r}")
-
-
-def _patterns(eff_b: int) -> list[str]:
-    # the standard and the AdvProp releases convert identically
-    return [f"efficientnet-b{eff_b}-*.pth", f"adv-efficientnet-b{eff_b}-*.pth"]
+def _patterns(model: str, eff_b: int) -> list[str]:
+    if model == "efficientnet":
+        # the standard and the AdvProp releases convert identically
+        return [f"efficientnet-b{eff_b}-*.pth", f"adv-efficientnet-b{eff_b}-*.pth"]
+    if model == "resnet":
+        return ["resnet50-*.pth"]
+    if model == "mbnet":
+        return ["mobilenet_v2-*.pth"]
+    raise ValueError(f"unknown model {model!r}")
 
 
 def cache_dirs() -> list[str]:
@@ -90,14 +92,14 @@ def cache_dirs() -> list[str]:
 
 def find_imagenet_checkpoint(model: str, eff_b: int) -> str | None:
     """The environment variable's file, else the first cache match, else None."""
-    _require_efficientnet(model)
+    patterns = _patterns(model, eff_b)
     env_path = os.environ.get(CKPT_ENV)
     if env_path:
         if not os.path.exists(env_path):
             raise MissingPretrainedError(f"{CKPT_ENV}={env_path} does not exist")
         return env_path
     for d in cache_dirs():
-        for pat in _patterns(eff_b):
+        for pat in patterns:
             hits = sorted(glob.glob(os.path.join(d, pat)))
             if hits:
                 return hits[0]
@@ -110,7 +112,8 @@ def resolve_imagenet_checkpoint(model: str, eff_b: int = 2) -> str:
     found = find_imagenet_checkpoint(model, eff_b)
     if found:
         return found
-    url = IMAGENET_URLS.get((model, eff_b), "(no canonical URL for this model)")
+    url = IMAGENET_URLS.get((model, eff_b if model == "efficientnet" else None),
+                            "(no canonical URL for this model)")
     raise MissingPretrainedError(
         "impretrain=True but no ImageNet weights were found (the port downloads "
         "nothing).\nTo fix, one of:\n"
@@ -128,9 +131,15 @@ def convert_imagenet_state_dict(state_dict: Mapping[str, torch.Tensor], model: s
                                 init_state_dict: Mapping[str, torch.Tensor]
                                 ) -> dict[str, torch.Tensor]:
     """An ImageNet state dict over a fresh model's: the backbone from the
-    file, the pooling head from ``init_state_dict``."""
-    _require_efficientnet(model)
-    return convert_imagenet_backbone(state_dict, init_state_dict)
+    file; the pooling head or classifier, and for ResNet and MBNet the
+    1-channel stem, from ``init_state_dict``."""
+    if model == "efficientnet":
+        return convert_imagenet_backbone(state_dict, init_state_dict)
+    if model == "resnet":
+        return convert_imagenet_resnet(state_dict, init_state_dict)
+    if model == "mbnet":
+        return convert_imagenet_mbnet(state_dict, init_state_dict)
+    raise ValueError(f"unknown model {model!r}")
 
 
 def load_imagenet_variables(path: str, model: str,

@@ -5,8 +5,10 @@ from __future__ import annotations
 import torch
 
 from psla_tpu_torch.models.effnet_att import EffNetAttention
-from psla_tpu_torch.models.layers import BatchNorm, SameConv2d
+from psla_tpu_torch.models.layers import BatchNorm, PadConv2d, SameConv2d
+from psla_tpu_torch.models.mobilenet import MBNet, MobileNetV2
 from psla_tpu_torch.models.pooling import AttentionPool, MeanPool, MultiHeadAttentionPool
+from psla_tpu_torch.models.resnet import ResNetAttention
 
 MODEL_REGISTRY = ("efficientnet", "resnet", "mbnet")
 
@@ -21,34 +23,44 @@ def create_model(
     remat: bool = False,
     drop_connect_rate: float = 0.2,
     bn_momentum: float = 0.99,
-) -> EffNetAttention:
+) -> torch.nn.Module:
     """Build the module for a model name (run.py's --model choices), in
     eval mode.
 
     Weights are initialised as the JAX package initialises them (He-normal
-    over fan-out for convs, the reference's uniform for the pooling heads),
-    drawn from ``generator`` (default: seeded with 0). ``remat`` and
+    over fan-out for convs, the reference's uniform for the pooling heads,
+    variance scaling for MBNet's classifier), drawn from ``generator``
+    (default: seeded with 0). For EfficientNet, ``remat`` and
     ``drop_connect_rate`` act in train mode (models/efficientnet.py), and
     so does ``bn_momentum``, the running statistics' momentum in flax's
     convention (0.99 keeps 99% of the old statistics at each step, torch's
-    momentum 0.01).
+    momentum 0.01). ResNet and MBNet keep torch's momentum 0.1, ignore
+    ``eff_b``, ``head_num`` (ResNet has one attention head, MBNet none),
+    ``drop_connect_rate`` and ``bn_momentum``, and refuse ``remat``, as the
+    JAX package does.
     """
-    if name in ("resnet", "mbnet"):
-        raise NotImplementedError(
-            f"model {name!r} is not ported yet: ROADMAP.md, Queue 1, "
-            "'ResNet and MobileNet backbones'"
-        )
-    if name != "efficientnet":
+    if name == "efficientnet":
+        model = EffNetAttention(label_dim=label_dim, b=eff_b, head_num=head_num,
+                                dtype=dtype, drop_connect_rate=drop_connect_rate,
+                                remat=remat)
+        for mod in model.modules():
+            if isinstance(mod, BatchNorm):
+                mod.momentum = 1.0 - bn_momentum
+    elif name in ("resnet", "mbnet"):
+        if remat:
+            # refused rather than ignored (the reference's ignored-flag quirks
+            # are not reproduced)
+            raise ValueError(f"remat is an EfficientNet-only option (got model={name!r})")
+        model = (ResNetAttention if name == "resnet" else MBNet)(label_dim=label_dim,
+                                                                 dtype=dtype)
+    else:
         raise ValueError(f"unknown model {name!r}; choices: {MODEL_REGISTRY}")
-    model = EffNetAttention(label_dim=label_dim, b=eff_b, head_num=head_num,
-                            dtype=dtype, drop_connect_rate=drop_connect_rate,
-                            remat=remat)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     for mod in model.modules():
-        if isinstance(mod, BatchNorm):
-            mod.momentum = 1.0 - bn_momentum
-        if isinstance(mod, (SameConv2d, MultiHeadAttentionPool, AttentionPool,
+        if isinstance(mod, (SameConv2d, PadConv2d, MultiHeadAttentionPool, AttentionPool,
                             MeanPool)):
             mod.reset_parameters(generator)
+        elif isinstance(mod, MobileNetV2):
+            mod.reset_classifier(generator)
     return model

@@ -6,7 +6,8 @@
 
 The input is a reference ``.pth`` (DataParallel ``module.`` prefixes, an
 ``_fc`` key), a training checkpoint of the port's trainer, or an ``.npz``
-of the JAX package's variables (``/``-joined tree paths). The output is
+of the JAX package's variables (``/``-joined tree paths), of the model
+``--model`` names (EfficientNet, ResNet50 or MobileNetV2). The output is
 the port's checkpoint: a normalized state_dict in the reference key layout,
 saved with ``torch.save``, which ``load_state_dict`` takes as it is. An
 orbax directory is refused (``models.convert.load_variables`` says how to
@@ -19,16 +20,17 @@ import argparse
 
 import torch
 
-from psla_tpu_torch.models.convert import load_variables
+from psla_tpu_torch.models.convert import load_variables, model_family
 
 
 def head_classes(state_dict: dict[str, torch.Tensor]) -> int:
-    """The class count of an EffNetAttention state_dict's pooling head."""
-    for key in ("attention.cla.bias", "attention.cla.0.bias"):
+    """The class count of a state_dict's pooling head (EffNetAttention,
+    ResNetAttention) or classifier (MBNet)."""
+    for key in ("attention.cla.bias", "attention.cla.0.bias", "model.classifier.bias"):
         if key in state_dict:
             return int(state_dict[key].shape[-1])
-    raise ValueError("no pooling head in the checkpoint (a backbone-only ImageNet "
-                     "file? the trainer takes those through --pretrained_ckpt)")
+    raise ValueError("no pooling head or classifier in the checkpoint (a backbone-only "
+                     "ImageNet file? the trainer takes those through --pretrained_ckpt)")
 
 
 def main(argv=None) -> int:
@@ -41,11 +43,10 @@ def main(argv=None) -> int:
     p.add_argument("--out", required=True, help="the port's .pth to write")
     args = p.parse_args(argv)
 
-    if args.model != "efficientnet":
-        raise NotImplementedError(
-            f"model {args.model!r} is not ported yet: ROADMAP.md, Queue 1, "
-            "'ResNet and MobileNet backbones'")
     sd = load_variables(args.ckpt)
+    if model_family(sd) != args.model:
+        raise ValueError(f"{args.ckpt} holds a {model_family(sd)} model, --model says "
+                         f"{args.model}")
     n_class = head_classes(sd)
     if n_class != args.n_class:
         raise ValueError(f"head has {n_class} classes, expected {args.n_class}")

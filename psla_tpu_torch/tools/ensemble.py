@@ -60,9 +60,14 @@ def head_num(state_dict: Mapping[str, torch.Tensor]) -> int:
     return len(heads)
 
 
-def check_heads(ckpt: str, state_dict: Mapping[str, torch.Tensor], att_head: int | None):
+def check_heads(ckpt: str, state_dict: Mapping[str, torch.Tensor], att_head: int | None,
+                model_name: str = "efficientnet"):
     """Raise when ``att_head`` is given and the checkpoint's pooling heads
-    (``head_num``) are another count."""
+    (``head_num``) are another count. ResNet and MBNet are not checked:
+    their heads are fixed and the JAX package ignores ``head_num`` for
+    them."""
+    if model_name != "efficientnet":
+        return
     if att_head is not None and head_num(state_dict) != att_head:
         raise ValueError(f"{ckpt}: the checkpoint has {head_num(state_dict)} attention "
                          f"heads, --att_head asks for {att_head}")
@@ -70,7 +75,9 @@ def check_heads(ckpt: str, state_dict: Mapping[str, torch.Tensor], att_head: int
 
 def member_model(state_dict: Mapping[str, torch.Tensor], model_name: str, n_class: int,
                  eff_b: int) -> torch.nn.Module:
-    """A float32 model holding ``state_dict`` (on the CPU, eval mode)."""
+    """A float32 model holding ``state_dict`` (on the CPU, eval mode); the
+    pooling heads are the checkpoint's (``create_model`` ignores them for
+    ResNet and MBNet)."""
     model = create_model(model_name, label_dim=n_class, eff_b=eff_b,
                          head_num=head_num(state_dict))
     model.load_state_dict(state_dict)
@@ -151,7 +158,7 @@ def ensemble_eval(
     ``att_head``, where given, must be every checkpoint's head count."""
     state_dicts = [load_variables(c) for c in checkpoints]
     for ckpt, sd in zip(checkpoints, state_dicts):
-        check_heads(ckpt, sd, att_head)
+        check_heads(ckpt, sd, att_head, model_name)
     if stacked and not same_layout(state_dicts):
         print("checkpoint param trees differ; falling back to sequential")
         stacked = False
@@ -198,11 +205,13 @@ def eval_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--data-eval", required=True)
     p.add_argument("--label-csv", required=True)
     p.add_argument("--preset", choices=sorted(PRESETS), default=None)
-    p.add_argument("--model", default="efficientnet")
+    p.add_argument("--model", default="efficientnet",
+                   choices=["efficientnet", "resnet", "mbnet"])
     p.add_argument("--eff_b", type=int, default=2)
     p.add_argument("--att_head", type=int, default=None,
                    help="the checkpoints' attention heads (default: each checkpoint's "
-                        "own; given, a checkpoint with another count is refused)")
+                        "own; given, a checkpoint with another count is refused; not "
+                        "read for resnet and mbnet)")
     p.add_argument("--n_class", type=int, default=None)
     p.add_argument("--batch-size", type=int, default=None)
     p.add_argument("--target_length", type=int, default=None)

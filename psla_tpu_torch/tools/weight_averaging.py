@@ -75,7 +75,7 @@ def weight_average_eval(
     def state_dicts():
         for c in checkpoints:
             sd = load_variables(c)
-            check_heads(c, sd, att_head)
+            check_heads(c, sd, att_head, model_name)
             yield sd
 
     state_dict = average_state_dicts(state_dicts())

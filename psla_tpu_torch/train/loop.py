@@ -160,8 +160,12 @@ class Trainer:
         ``models.pretrained.resolve_imagenet_checkpoint`` finds on disk (it
         raises when there is none). The file is a full model in the
         reference key layout (anything ``models.convert.load_variables``
-        reads), or a backbone without a pooling head, such as an ImageNet
-        efficientnet_pytorch checkpoint: then the head stays fresh."""
+        reads), or a backbone alone, such as an ImageNet efficientnet_pytorch
+        or torchvision checkpoint: then the head, and for ResNet and MBNet
+        the 1-channel stem, stay fresh. As in the JAX trainer
+        (``psla_tpu/train/loop.py``), an EfficientNet or ResNet file without
+        ``attention`` keys is a backbone, and so is an MBNet file without
+        ``model.`` keys (torchvision's own layout)."""
         cfg = self.config
         model = self._new_model()
         path = cfg.pretrained_ckpt
@@ -170,7 +174,11 @@ class Trainer:
             print(f"loading ImageNet pretrained backbone: {path}")
         if path:
             sd = load_variables(path)
-            if not any(k.startswith("attention.") for k in sd):
+            if cfg.model == "mbnet":
+                backbone_only = not any(k.startswith("model.") for k in sd)
+            else:
+                backbone_only = not any("attention" in k for k in sd)
+            if backbone_only:
                 sd = convert_imagenet_state_dict(sd, cfg.model, model.state_dict())
             model.load_state_dict(sd)
         return create_train_state(model, self.schedule, step=0, device=self.device)

@@ -47,7 +47,7 @@ def _wav_batch(batch: Mapping[str, np.ndarray | torch.Tensor],
 class TrainDraws(NamedTuple):
     pre: PreprocessDraws
     # [len(model.effnet.drop_blocks), B] bool drop-connect keep masks, or
-    # None when no block drops
+    # None when no block drops (ResNet and MBNet have no drop-connect)
     keep: torch.Tensor | None
 
 
@@ -63,9 +63,10 @@ def step_generator(seed: int, step: int, device: str | torch.device) -> torch.Ge
 def draw_train(generator: torch.Generator, model: torch.nn.Module, batch: int,
                config: PreprocessConfig) -> TrainDraws:
     """One step's draws, on the generator's device: the preprocessing's and
-    one keep mask per block that drops (Bernoulli(1 - drop_rate))."""
+    one keep mask per EfficientNet block that drops (Bernoulli(1 -
+    drop_rate))."""
     pre = draw_preprocess(generator, batch, config)
-    blocks = model.effnet.drop_blocks
+    blocks = model.effnet.drop_blocks if hasattr(model, "effnet") else []
     if not blocks:
         return TrainDraws(pre, None)
     keep_prob = torch.tensor([1.0 - model.effnet._blocks[i].drop_rate for i in blocks],
@@ -87,7 +88,8 @@ def make_train_step_fn(pre_config: PreprocessConfig, loss_type: str = "BCE"
         model.train()
         fbank, labels = preprocess_train(_wav_batch(batch, state.device), draws.pre,
                                          pre_config)
-        loss = loss_fn(model(fbank, keep=draws.keep), labels)
+        probs = model(fbank) if draws.keep is None else model(fbank, keep=draws.keep)
+        loss = loss_fn(probs, labels)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
         set_lr(optimizer, state.schedule(state.step))

@@ -140,12 +140,18 @@ def test_npz_of_jax_variables_loads(tmp_path):
 
 
 def test_unported_backbones_raise():
+    """Every family builds now (ResNet and MBNet are held to the JAX
+    package in tests/test_torch_backbones.py); remat, an EfficientNet-only
+    option, raises for the other two as the JAX package's create_model
+    does."""
+    for name in ("efficientnet", "resnet", "mbnet"):
+        model = create_model(name, label_dim=N_CLASS, eff_b=0)
+        assert not model.training and model.train() is model and model.training
+        with torch.inference_mode():
+            assert model.eval()(torch.from_numpy(fbank_batch())).shape == (2, N_CLASS)
     for name in ("resnet", "mbnet"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            create_model(name, label_dim=N_CLASS)
-    # the EfficientNet has its training forward now
-    model = create_model("efficientnet", label_dim=N_CLASS, eff_b=0)
-    assert not model.training and model.train() is model and model.training
+        with pytest.raises(ValueError, match="EfficientNet-only"):
+            create_model(name, label_dim=N_CLASS, remat=True)
 
 
 @pytest.mark.parametrize("size,kernel,stride", [

@@ -34,7 +34,8 @@ from psla_tpu_torch.models.pretrained import (
 from psla_tpu_torch.train.loop import Trainer
 from tests.synth import build_corpus
 from tests.test_convert import _imagenet_state_dict
-from tests.torch_port_fixtures import jax_variables
+from tests.test_pretrained import _mobilenet_v2_imagenet_sd
+from tests.torch_port_fixtures import jax_backbone_variables, jax_variables
 
 torch.set_num_threads(2)
 
@@ -99,8 +100,13 @@ def test_resolve_missing_raises_with_instructions(isolated_cache):
     assert "PSLA_TPU_IMAGENET_CKPT" in msg          # the environment variable
     assert "--pretrained-ckpt" in msg               # an explicit file
     assert "--impretrain False" in msg              # training from scratch
-    with pytest.raises(NotImplementedError, match="ResNet and MobileNet"):
-        resolve_imagenet_checkpoint("resnet")
+    # ResNet's file, torchvision's name, is found in the cache
+    resnet = os.path.join(isolated_cache, "resnet50-19c8e357.pth")
+    open(resnet, "wb").write(b"x")
+    assert resolve_imagenet_checkpoint("resnet") == resnet
+    with pytest.raises(MissingPretrainedError) as exc:
+        resolve_imagenet_checkpoint("mbnet")
+    assert IMAGENET_URLS["mbnet", None] in str(exc.value)
 
 
 @pytest.mark.parametrize("stem", ["sum", "random"])
@@ -137,8 +143,16 @@ def test_load_imagenet_variables_reads_a_saved_file(tmp_path):
     want = convert_imagenet_backbone(sd, init)
     assert got.keys() == want.keys()
     assert all(torch.equal(got[k], want[k]) for k in got)
-    with pytest.raises(NotImplementedError, match="ResNet and MobileNet"):
-        load_imagenet_variables(path, "mbnet", init)
+    # a torchvision mobilenet_v2 file converts over a fresh MBNet
+    mb = _mobilenet_v2_imagenet_sd(np.random.RandomState(2))
+    mb_path = str(tmp_path / "mobilenet_v2-seeded.pth")
+    torch.save({k: torch.from_numpy(np.asarray(v)) for k, v in mb.items()}, mb_path)
+    mb_init = from_jax_variables(jax_backbone_variables("mbnet", 7, N_CLASS), N_CLASS)
+    got = load_imagenet_variables(mb_path, "mbnet", mb_init)
+    assert got.keys() == mb_init.keys()
+    assert torch.equal(got["model.features.1.conv.0.0.weight"],
+                       torch.from_numpy(mb["features.1.conv.0.0.weight"]))
+    assert torch.equal(got["model.classifier.weight"], mb_init["model.classifier.weight"])
 
 
 def test_backbone_of_another_size_is_refused():

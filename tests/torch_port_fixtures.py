@@ -8,6 +8,7 @@ block until the output no longer depends on the input), BatchNorm
 statistics are randomized (mean ~N(0, 0.1), var ~U(0.5, 1.5)) so eval
 outputs are not flat, and the pooling kernels are widened so the
 probabilities spread. The same tree goes through both packages.
+``jax_backbone_variables`` does the same for ResNetAttention and MBNet.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import numpy as np
 
 import jax
 import jax.numpy as jnp
+import optax
 from flax import traverse_util
 
 from psla_tpu.models import create_model as jax_create_model
@@ -63,3 +65,62 @@ def jax_variables(head_num: int, seed: int, n_class: int) -> dict:
             x = rng.normal(0.0, 0.1, shape)
         out[path] = x.astype(np.float32)
     return traverse_util.unflatten_dict(out)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_backbone(name: str, n_class: int, dtype=jnp.float32):
+    return jax_create_model(name, label_dim=n_class, dtype=dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _backbone_shapes(name: str, n_class: int) -> list:
+    """The (path, shape) leaves of the model's variables, in order."""
+    model = jax_backbone(name, n_class)
+    shapes = jax.eval_shape(
+        lambda k: model.init(k, jnp.zeros((1, 64, 64), jnp.float32), train=False),
+        jax.random.PRNGKey(0),
+    )
+    return sorted(traverse_util.flatten_dict(shapes).items())
+
+
+@functools.lru_cache(maxsize=None)
+def jax_backbone_variables(name: str, seed: int, n_class: int) -> dict:
+    """Numpy-filled {'params', 'batch_stats'} for ResNetAttention or MBNet,
+    drawn as ``jax_variables`` draws EfficientNet's, with two changes.
+    The pooling head and MBNet's classifier are at the reference's scale,
+    U(-a, a) with a = sqrt(6 / fan_in), not widened. ResNet's last
+    BatchNorm of each residual branch (``conv3``'s) scales by U(0.1, 0.3):
+    at He-normal over fan-in every block doubles the activations' second
+    moment, and over 16 blocks the probabilities saturate at 0 and 1."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for path, s in _backbone_shapes(name, n_class):
+        shape, leaf = s.shape, path[-1]
+        if path[0] == "batch_stats":
+            x = (rng.normal(0.0, 0.1, shape) if leaf == "mean"
+                 else rng.uniform(0.5, 1.5, shape))
+        elif path[1] in ("attention", "classifier"):
+            if leaf == "kernel":
+                a = np.sqrt(6.0 / shape[0])
+                x = rng.uniform(-a, a, shape)
+            else:
+                x = rng.normal(0.0, 0.1, shape)
+        elif leaf == "kernel":  # HWIO conv kernel: He-normal over fan-in
+            x = rng.normal(0.0, np.sqrt(2.0 / (shape[0] * shape[1] * shape[2])),
+                           shape)
+        elif leaf == "scale":
+            x = rng.uniform(*((0.1, 0.3) if "conv3" in path else (0.8, 1.2)), shape)
+        else:  # BN biases
+            x = rng.normal(0.0, 0.1, shape)
+        out[path] = x.astype(np.float32)
+    return traverse_util.unflatten_dict(out)
+
+
+def grad_recording(tx: optax.GradientTransformation) -> optax.GradientTransformation:
+    """``tx`` after a transform that passes the gradients on unchanged and
+    keeps them as its state: a step's gradients are ``opt_state[0]``."""
+    keep = optax.GradientTransformation(
+        lambda params: jax.tree.map(jnp.zeros_like, params),
+        lambda updates, state, params=None: (updates, updates))
+    return optax.chain(keep, tx)
+
