@@ -143,6 +143,25 @@ result line):
    train steps plus the eval batches; the CSVs finite; the wa checkpoint
    served through ``InferenceEngine``. ``--profile`` adds the device time by
    group of each backbone's train step.
+11. Multi-seed ensemble training (``--ensemble-seeds``) at the audioset_full
+   widths (B2, 4 heads, 527 classes, T=1056, batch 100, float32 with TF32
+   off): (a) ``parallel.ensemble.make_ensemble_train_step`` at E=2 on seeded
+   weights, one shared int16 batch and each member's own draws: the fbank
+   launches of one step (set to 0 just before, read just after) must be E,
+   each member held to the single-model step fed its draws (loss and
+   running statistics 1e-5, parameters 2 x lr); then 2 warm-up and 10
+   timed steps (device ms by CUDA events, clips/s of the shared stream,
+   peak memory) beside phase 6's step, and one timed step at E=10, the
+   reference's ensemble size. (b) ``make_ensemble_eval_step`` on a batch
+   of 100: one fbank launch, each member within 1e-5 of its own eval
+   step, both timed. (c) ``psla-torch-train --ensemble-seeds 2``
+   (``cli.run``) on phase 7's corpus writer with the val list as the eval
+   set, 2 epochs, wa over 1-2, then ``--resume --n-epochs 3``: each run's
+   fbank launches E x its train steps plus its eval batches; the stacked
+   checkpoints' step, ``seed_result.csv``'s rows, the seed-mean and
+   per-seed prediction matrices, the ``best``/``wa`` extracts; and
+   ``tools/ensemble.ensemble_eval`` on best_seed0 and best_seed1 on the
+   card, within 1e-5 of the protocol's per-seed matrices.
 
 The line before the last is a JSON object with one record per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -205,11 +224,23 @@ from psla_tpu_torch.tools import export as export_tool
 from psla_tpu_torch.tools import flagship, prep_fsd, smoke, verify_release
 from psla_tpu_torch.tools import predict as predict_tool
 from psla_tpu_torch.tools import weight_averaging as wa_tool
+from psla_tpu_torch.parallel.ensemble import (
+    EnsembleState,
+    init_ensemble_state,
+    make_ensemble_eval_step,
+    make_ensemble_train_step,
+)
 from psla_tpu_torch.tools.serve import InferenceEngine, make_server
+from psla_tpu_torch.train.ensemble_loop import EnsembleTrainer
 from psla_tpu_torch.train.loop import Trainer
 from psla_tpu_torch.train.optim import psla_lr_schedule
 from psla_tpu_torch.train.state import create_train_state
-from psla_tpu_torch.train.step import _wav_batch, draw_train, make_train_step_fn
+from psla_tpu_torch.train.step import (
+    _wav_batch,
+    draw_train,
+    make_eval_step_fn,
+    make_train_step_fn,
+)
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): float32
 # outside the tensor cores, and device memory bandwidth.
@@ -1155,32 +1186,44 @@ def step_held_to_plain(cfg: PreprocessConfig, batch: dict, make_state, what: str
     return state, loss, after, step, gen, draws
 
 
-def timed_steps(step, state, batch: dict, gen: torch.Generator, cfg: PreprocessConfig):
-    """WARM_STEPS, then TIMED_STEPS with fresh draws each: (state, device ms
-    of each step by CUDA events, wall ms a step, peak memory, losses); one
-    fbank launch a step, counted."""
+def timed_steps(step, state, batch: dict, gen: torch.Generator, cfg: PreprocessConfig,
+                members: int = 0, warm: int | None = None, timed: int | None = None):
+    """``warm`` (default WARM_STEPS), then ``timed`` (TIMED_STEPS) steps with
+    fresh draws each: (state, device ms of each step by CUDA events, wall ms
+    a step, peak memory, losses); one fbank launch a step, counted. With
+    ``members`` the state is an ensemble's: each step draws for every
+    member, and launches once a member."""
+    warm = WARM_STEPS if warm is None else warm
+    timed = TIMED_STEPS if timed is None else timed
     size = len(batch["wav"])
-    for _ in range(WARM_STEPS):
-        state, metrics = step(state, batch, draw_train(gen, state.model, size, cfg))
+
+    def draws():
+        if not members:
+            return draw_train(gen, state.model, size, cfg)
+        return [draw_train(gen, state.members[0].model, size, cfg) for _ in range(members)]
+
+    for _ in range(warm):
+        state, metrics = step(state, batch, draws())
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fbank_cuda.LAUNCHES = 0
     events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-              for _ in range(TIMED_STEPS)]
+              for _ in range(timed)]
     losses = []
     t0 = time.perf_counter()
     for start, end in events:
         start.record()
-        state, metrics = step(state, batch, draw_train(gen, state.model, size, cfg))
+        state, metrics = step(state, batch, draws())
         end.record()
         losses.append(metrics["loss"])
     torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
+    wall_ms = (time.perf_counter() - t0) * 1e3 / timed
     peak = torch.cuda.max_memory_allocated()
     device_ms = [a.elapsed_time(b) for a, b in events]
     losses = [float(x) for x in losses]
-    check(fbank_cuda.LAUNCHES == TIMED_STEPS,
-          f"{fbank_cuda.LAUNCHES} fbank launches in {TIMED_STEPS} steps")
+    want = timed * max(members, 1)
+    check(fbank_cuda.LAUNCHES == want, f"{fbank_cuda.LAUNCHES} fbank launches in {timed} "
+                                       f"steps, want {want}")
     check(bool(np.all(np.isfinite(losses))), f"train losses {losses}")
     return state, device_ms, wall_ms, peak, losses
 
@@ -2574,6 +2617,272 @@ def backbones_phase(b2: tuple[float, float], profile: bool) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ---------------------------------------------------------------- phase 11
+
+# Multi-seed ensemble training (psla-torch-train --ensemble-seeds E; the
+# reference README's 10-model ensemble) at the audioset_full widths: E
+# members of B2 (4 heads, 527 classes, T=1056, batch 100, float32 with TF32
+# off) step in lockstep on one shared batch, each with its own draws.
+ENSEMBLE_SEEDS = tuple(range(51, 61))  # seeded weights of up to 10 members
+HELD_MEMBERS, PAPER_MEMBERS = 2, 10
+
+
+class RecordingEnsembleTrainer(EnsembleTrainer):
+    """The CLI's ensemble trainer, kept so its loaders and step count can be
+    read after the run."""
+
+    runs: list = []
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        RecordingEnsembleTrainer.runs.append(self)
+
+
+def run_ensemble_cli(argv: list[str]) -> tuple[RecordingEnsembleTrainer, dict]:
+    RecordingEnsembleTrainer.runs.clear()
+    cli.EnsembleTrainer = RecordingEnsembleTrainer
+    try:
+        summary = cli.run(argv)
+    finally:
+        cli.EnsembleTrainer = EnsembleTrainer
+    (trainer,) = RecordingEnsembleTrainer.runs
+    return trainer, summary
+
+
+def ensemble_state(seeds) -> EnsembleState:
+    return EnsembleState([train_state(seeded_state_dict(s)) for s in seeds])
+
+
+def ensemble_step(b2: tuple[float, float]) -> int:
+    """(a) The ensemble train step at E=2 on seeded weights: one step
+    (launches set to 0 just before, read just after: E) held member by
+    member to the single-model step fed that member's draws (loss and
+    running statistics 1e-5, parameters 2 x lr); then warm-up and timed
+    steps (device ms, clips/s of the shared stream, peak memory), and one
+    timed step at E=10. Returns the launches of the held step."""
+    cfg = train_config()
+    batch = train_batch(cfg, batch=STEP_BATCH)
+    e = HELD_MEMBERS
+    state = ensemble_state(ENSEMBLE_SEEDS[:e])
+    singles = [train_state(seeded_state_dict(s)) for s in ENSEMBLE_SEEDS[:e]]
+    check(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32,
+          "TF32 is on for a float32 train step")
+    lr = state.members[0].schedule(state.step)
+    n_params = sum(p.numel() for p in state.members[0].model.parameters())
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    draws = [draw_train(gen, state.members[0].model, STEP_BATCH, cfg) for _ in range(e)]
+    step = make_ensemble_train_step(cfg)
+    torch.cuda.synchronize()
+    fbank_cuda.LAUNCHES = 0
+    state, metrics = step(state, batch, draws)
+    torch.cuda.synchronize()
+    launches = fbank_cuda.LAUNCHES
+    seed_loss = [float(x) for x in metrics["seed_loss"]]
+    mean_err = abs(float(metrics["loss"]) - float(np.mean(seed_loss)))
+    print(f"ensemble train step, E={e} (B{EFF_B}, {HEADS} heads, {N_CLASS} classes, "
+          f"T={TARGET}, batch {STEP_BATCH} shared, float32, TF32 off; {n_params} parameters "
+          f"a member): fbank launches {launches}; seed losses {seed_loss}, mean "
+          f"{float(metrics['loss']):.6f} (off the mean of the seeds by {mean_err:.1e})")
+    check(launches == e, f"{launches} fbank launches in one E={e} ensemble step")
+    check(bool(np.all(np.isfinite(seed_loss))) and mean_err <= 1e-6,
+          f"ensemble losses {seed_loss}, mean {float(metrics['loss'])}")
+    check(abs(seed_loss[0] - seed_loss[1]) > 1e-6, "the members' losses are equal")
+    single = make_train_step_fn(cfg)
+    for i, held in enumerate(state.members):
+        singles[i], m = single(singles[i], batch, draws[i])
+        after, want = held.model.state_dict(), singles[i].model.state_dict()
+        stats = [k for k in after if k.endswith(("running_mean", "running_var"))]
+        params = [k for k, _ in held.model.named_parameters()]
+        loss_err = abs(seed_loss[i] - float(m["loss"]))
+        stats_err, param_err = max_diff(after, want, stats), max_diff(after, want, params)
+        print(f"member {i} vs the single-model step on its draws: loss {loss_err:.3e} (bar "
+              f"{STEP_LOSS_ATOL}), running statistics {stats_err:.3e} (bar {STATS_ATOL}), "
+              f"parameters {param_err:.3e} (bar {2 * lr})")
+        check(loss_err <= STEP_LOSS_ATOL, f"member {i}: loss off by {loss_err}")
+        check(stats_err <= STATS_ATOL, f"member {i}: running statistics off by {stats_err}")
+        check(param_err <= 2 * lr, f"member {i}: parameters off by {param_err}")
+    del singles
+    torch.cuda.empty_cache()
+
+    state, device_ms, wall_ms, peak, losses = timed_steps(step, state, batch, gen, cfg,
+                                                          members=e)
+    ms = float(np.mean(device_ms))
+    print(f"ensemble train step E={e}, {TIMED_STEPS} steps after {WARM_STEPS} warm-up: "
+          f"device {ms:.2f} ms/step (CUDA events; {min(device_ms):.2f}-{max(device_ms):.2f}), "
+          f"wall {wall_ms:.2f} ms/step, {STEP_BATCH / wall_ms * 1e3:.1f} clips/s of the shared "
+          f"stream ({e * STEP_BATCH / wall_ms * 1e3:.1f} member-clips/s); peak memory "
+          f"{peak / 2**30:.2f} GiB; {ms / (e * b2[0]):.3f} x E x phase 6's single step "
+          f"({b2[0]:.2f} ms, {b2[1]:.1f} clips/s in this call) ({card()})")
+    schedule = state.members[0].schedule
+    del state
+    torch.cuda.empty_cache()
+
+    e = PAPER_MEMBERS
+    t0 = time.perf_counter()
+    state = init_ensemble_state(lambda s: member(seeded_state_dict(s), torch.float32),
+                                ENSEMBLE_SEEDS[:e], schedule, step=START_STEP, device=DEVICE)
+    setup = time.perf_counter() - t0
+    state, device_ms, wall_ms, peak, losses = timed_steps(step, state, batch, gen, cfg,
+                                                          members=e, warm=1, timed=1)
+    print(f"ensemble train step E={e} (members built in {setup:.1f} s), 1 step after 1 "
+          f"warm-up: device {device_ms[0]:.2f} ms, wall {wall_ms:.2f} ms, "
+          f"{STEP_BATCH / wall_ms * 1e3:.1f} clips/s of the shared stream; peak memory "
+          f"{peak / 2**30:.2f} GiB; {device_ms[0] / (e * b2[0]):.3f} x E x phase 6's single "
+          f"step; losses {losses} ({card()})")
+    return launches
+
+
+def ensemble_eval_step() -> int:
+    """(b) The ensemble eval step on a batch of 100 clips: each member's
+    probabilities within 1e-5 of its own single-model eval step, one fbank
+    launch (set to 0 just before, read just after); both timed. Returns
+    the launches."""
+    cfg = train_config()
+    batch = train_batch(cfg, seed=8, batch=STEP_BATCH)
+    state = ensemble_state(ENSEMBLE_SEEDS[:HELD_MEMBERS])
+    step, single = make_ensemble_eval_step(cfg), make_eval_step_fn(cfg)
+    torch.cuda.synchronize()
+    fbank_cuda.LAUNCHES = 0
+    probs, losses = step(state, batch)
+    torch.cuda.synchronize()
+    launches = fbank_cuda.LAUNCHES
+    check(launches == 1, f"{launches} fbank launches in one ensemble eval step")
+    check(tuple(probs.shape) == (HELD_MEMBERS, STEP_BATCH, N_CLASS)
+          and bool(torch.isfinite(probs).all()), f"ensemble eval: {tuple(probs.shape)}")
+    errs = []
+    for i, m in enumerate(state.members):
+        want, want_loss = single(m, batch)
+        errs.append(max(float((probs[i] - want).abs().max()),
+                        float((losses[i] - want_loss).abs().max())))
+    ens_ms = cuda_ms(lambda: step(state, batch), reps=5, warmup=1)
+    seq_ms = cuda_ms(lambda: [single(m, batch) for m in state.members], reps=5, warmup=1)
+    print(f"ensemble eval step E={HELD_MEMBERS}, batch {STEP_BATCH}: fbank launches "
+          f"{launches}; each member vs its single-model eval step: max abs err {errs} (bar "
+          f"{ENSEMBLE_ATOL}); {ens_ms:.2f} ms against {seq_ms:.2f} ms for the members' single "
+          f"steps in turn (CUDA events) ({card()})")
+    check(max(errs) <= ENSEMBLE_ATOL, f"ensemble eval off the single steps by {max(errs)}")
+    return launches
+
+
+def ensemble_trainer(root: str, train_json: str, val_json: str) -> tuple[int, int]:
+    """(c) ``cli.run --preset audioset_full --ensemble-seeds 2`` for 2 epochs
+    with weight averaging over 1-2 and the protocol on the val list as the
+    eval set, then ``--resume --n-epochs 3``: the fbank launches of each run
+    (set to 0 just before, read just after) are E x the train steps plus the
+    eval batches; the per-seed files, seed_result.csv's rows, the stacked
+    step; ``tools/ensemble.ensemble_eval`` reads best_seed0 and best_seed1
+    on the card. Returns the launches of the two runs."""
+    e = HELD_MEMBERS
+    exp = os.path.join(root, "exp_ensemble")
+    base = ["--preset", "audioset_full", "--data-train", train_json, "--data-val", val_json,
+            "--data-eval", val_json, "--label-csv", assets.label_csv_for("audioset"),
+            "--exp-dir", exp, "--impretrain", "False", "--warmup", "False", "--wa_start",
+            "1", "--wa_end", "2", "--eff_b", str(EFF_B), "--target_length", str(TARGET),
+            "-b", str(STEP_BATCH), "--ensemble-seeds", str(e), "--device", DEVICE]
+    out = []
+    for epochs, extra in ((2, []), (3, ["--resume"])):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fbank_cuda.LAUNCHES = 0
+        t0 = time.perf_counter()
+        run, summary = run_ensemble_cli(base + ["--n-epochs", str(epochs)] + extra)
+        torch.cuda.synchronize()
+        launches, wall = fbank_cuda.LAUNCHES, time.perf_counter() - t0
+        spe, vb = run.steps_per_epoch, run.val_loader.batches_per_epoch()
+        eb = run.eval_loader.batches_per_epoch()
+        trained = epochs - (2 if extra else 0)
+        # each epoch's validation, wa, then best and wa on val and eval and
+        # every epoch checkpoint on eval
+        evals = trained * vb + vb + 2 * (vb + eb) + epochs * eb
+        want = e * trained * spe + evals
+        secs = run.train_seconds[epochs]
+        print(f"psla-torch-train --ensemble-seeds {e} {' '.join(extra)} (cli.run, "
+              f"audioset_full: B{EFF_B}, {HEADS} heads, {N_CLASS} classes, T={TARGET}, batch "
+              f"{STEP_BATCH}): {trained} epoch(s) of {spe} steps, {wall:.2f} s in all, epoch "
+              f"{epochs}'s train loop {secs:.3f} s ({spe * STEP_BATCH / secs:.1f} clips/s of "
+              f"the shared stream); fbank launches {launches} (E x train steps "
+              f"{e * trained * spe} + eval batches {evals}); peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; summary "
+              f"{json.dumps(summary)} ({card()})")
+        check(launches == want, f"ensemble trainer: {launches} fbank launches, want {want}")
+        out.append(launches)
+        ckpt = torch.load(os.path.join(exp, "models", f"epoch_{epochs}", "checkpoint.pth"),
+                          map_location="cpu", weights_only=True)
+        check(ckpt["seeds"] == e and ckpt["step"] == epochs * spe
+              and all(v.shape[0] == e for v in ckpt["model"].values()),
+              f"stacked epoch_{epochs}: seeds {ckpt['seeds']}, step {ckpt['step']}")
+        rows = {}
+        with open(os.path.join(exp, "seed_result.csv")) as f:
+            for line in f:
+                fields = line.strip().split(",")
+                rows[fields[0]] = [float(x) for x in fields[1:]]
+        tags = [str(i) for i in range(1, epochs + 1)] + [
+            "wa", "best_single_valid_set", "best_single_eval_set", "wa_valid_set",
+            "wa_eval_set"] + [f"eval_{i}" for i in range(1, epochs + 1)]
+        check(sorted(rows) == sorted(tags) and list(rows)[:epochs] == tags[:epochs]
+              and all(len(v) == e + 1 and np.all(np.isfinite(v)) for v in rows.values()),
+              f"seed_result.csv rows {rows}")
+        pred = os.path.join(exp, "predictions")
+        means = np.loadtxt(os.path.join(pred, f"predictions_{epochs}.csv"), delimiter=",")
+        seeds = [np.loadtxt(os.path.join(pred, f"predictions_{epochs}_seed{i}.csv"),
+                            delimiter=",") for i in range(e)]
+        mean_err = float(np.abs(means - np.mean(seeds, axis=0)).max())
+        check(mean_err <= 1e-6 and not os.path.exists(
+            os.path.join(pred, f"predictions_{epochs - 1}_seed0.csv")),
+            f"predictions_{epochs}.csv is {mean_err} off the seed mean, or an older "
+            "epoch's member matrix is left")
+        for tag in ("best", "wa"):
+            for i in range(e):
+                check(os.path.exists(os.path.join(exp, "models", f"{tag}_seed{i}",
+                                                  "checkpoint.pth")), f"{tag}_seed{i} missing")
+        print(f"seed_result.csv epoch {epochs}: member mAPs {rows[str(epochs)][:e]}, "
+              f"ensemble {rows[str(epochs)][e]:.4f}; predictions_{epochs}.csv {mean_err:.1e} "
+              f"off the mean of the members'")
+
+    # the per-seed extracts through the ensemble tool, on the card
+    cfg = cli.config_from_args(cli.build_parser().parse_args(base + ["--n-epochs", "3"]))
+    loader = cli.make_loaders(cfg)[1]
+    tool_out = os.path.join(root, "ensemble_tool")
+    fbank_cuda.LAUNCHES = 0
+    res = ensemble_tool.ensemble_eval(
+        [os.path.join(exp, "models", f"best_seed{i}") for i in range(e)], loader,
+        cfg.preprocess_config(), n_class=N_CLASS, eff_b=EFF_B, out_dir=tool_out,
+        device=DEVICE)
+    tool_launches = fbank_cuda.LAUNCHES
+    errs = [float(np.abs(
+        np.loadtxt(os.path.join(tool_out, f"predictions_{i}.csv"), delimiter=",")
+        - np.loadtxt(os.path.join(exp, "predictions",
+                                  f"predictions_best_single_valid_set_seed{i}.csv"),
+                     delimiter=",")).max()) for i in range(e)]
+    print(f"tools/ensemble.ensemble_eval on best_seed0..{e - 1}: mAP {res['ensemble']['mAP']:.4f}, "
+          f"fbank launches {tool_launches} ({loader.batches_per_epoch()} batches); members "
+          f"vs the protocol's best_single_valid_set_seed matrices: {errs} (bar {ENSEMBLE_ATOL})")
+    check(tool_launches == loader.batches_per_epoch(), f"ensemble tool: {tool_launches} "
+                                                       "fbank launches")
+    check(max(errs) <= ENSEMBLE_ATOL and np.isfinite(res["ensemble"]["mAP"]),
+          f"the ensemble tool's member predictions off by {errs}")
+    return out[0], out[1]
+
+
+def ensemble_phase(b2: tuple[float, float]) -> dict:
+    """Phase 11: multi-seed ensemble training on the card. Returns the fbank
+    kernel's launches on each of its paths."""
+    t_phase = time.perf_counter()
+    out = {"launches_ensemble_train_step": ensemble_step(b2)}
+    torch.cuda.empty_cache()
+    out["launches_ensemble_eval_step"] = ensemble_eval_step()
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="psla_ensemble_")
+    try:
+        train_json, val_json, _ = write_corpus(root)
+        (out["launches_ensemble_trainer_run"],
+         out["launches_ensemble_trainer_resume"]) = ensemble_trainer(root, train_json, val_json)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"phase 11: {time.perf_counter() - t_phase:.1f} s; fbank launches {out}")
+    return out
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -2604,6 +2913,8 @@ def main(argv=None) -> int:
     record.update(fsd_phase(step_clips_s))
     torch.cuda.empty_cache()
     record.update(backbones_phase((step_ms, step_clips_s), args.profile))
+    torch.cuda.empty_cache()
+    record.update(ensemble_phase((step_ms, step_clips_s)))
     for r in records:
         check(r["launches"] > 0, f"kernel {r['name']} was not launched on its path")
     print(f"total {time.perf_counter() - t0:.1f} s")

@@ -25,6 +25,7 @@ from psla_tpu_torch.config import PRESETS, ExperimentConfig, unported
 from psla_tpu_torch.data.datafiles import load_datafile
 from psla_tpu_torch.data.loader import AudioLoader, LoaderConfig
 from psla_tpu_torch.data.sampler import compute_sample_weights
+from psla_tpu_torch.train.ensemble_loop import EnsembleTrainer
 from psla_tpu_torch.train.loop import Trainer
 from psla_tpu_torch.train.protocol import post_training_summary
 
@@ -90,7 +91,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--num-devices", type=int, default=None,
                    help="more than 1: not ported yet (ROADMAP Queue 1 item 6)")
     p.add_argument("--ensemble-seeds", type=int, default=None,
-                   help="more than 1: not ported yet (ROADMAP Queue 1 item 7)")
+                   help="train this many seeds in lockstep on the card (seed, seed + 1, "
+                        "...; a shared data stream, per-seed draws) and report their "
+                        "mean (EnsembleTrainer)")
     p.add_argument("--fbank-method", choices=["auto", "fft", "gemm", "pallas"], default=None,
                    help="'auto' and 'pallas' take the CUDA fbank kernel on the card")
     p.add_argument("--fbank-precision", choices=["highest", "high", "default"], default=None,
@@ -179,7 +182,8 @@ def run(argv=None) -> dict:
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "host CPU"
     print(f"torch {torch.__version__} on {device} ({name})", flush=True)
     train_loader, val_loader, eval_loader = make_loaders(cfg)
-    trainer = Trainer(cfg, train_loader, val_loader, eval_loader, device=device)
+    trainer_cls = EnsembleTrainer if cfg.ensemble_seeds > 1 else Trainer
+    trainer = trainer_cls(cfg, train_loader, val_loader, eval_loader, device=device)
     trainer.train(resume=args.resume)
     return post_training_summary(trainer, eval_loader)
 

@@ -89,7 +89,7 @@ class ExperimentConfig:
     fbank_precision: str = "high"
     # parallelism: more than one card is ROADMAP Queue 1 item 6
     num_devices: Optional[int] = None
-    # multi-seed ensemble training: ROADMAP Queue 1 item 7
+    # multi-seed ensemble training (train/ensemble_loop.EnsembleTrainer) when > 1
     ensemble_seeds: int = 1
     # a torch.profiler trace of train steps [profile_start_step,
     # profile_start_step + profile_steps) into {exp_dir}/profile
@@ -141,7 +141,6 @@ def unported(cfg: ExperimentConfig):
     its ROADMAP item."""
     later = (
         ((cfg.num_devices or 1) > 1, "--num-devices over 1", "item 6 (data parallelism)"),
-        (cfg.ensemble_seeds > 1, "--ensemble-seeds over 1", "item 7 (multi-seed ensemble)"),
         (cfg.act_compress != "none", "--act_compress", "item 9 (int8 activation compression)"),
         (cfg.dtype == "bfloat16", "--dtype bfloat16", "item 10 (bfloat16 training)"),
     )

@@ -317,7 +317,8 @@ def load_variables(path: str) -> dict[str, torch.Tensor]:
     from the port), a training checkpoint of the port's trainer (its
     directory or its ``checkpoint.pth``; the model's state_dict is taken),
     or an ``.npz`` of JAX variables whose keys are the ``/``-joined tree
-    paths (``params/effnet/stem/conv/kernel``, ...).
+    paths (``params/effnet/stem/conv/kernel``, ...). An ensemble trainer's
+    stacked checkpoint raises ``ValueError`` naming its per-seed extracts.
     """
     if os.path.isdir(path):
         if not os.path.exists(os.path.join(path, CHECKPOINT_FILE)):
@@ -330,6 +331,13 @@ def load_variables(path: str) -> dict[str, torch.Tensor]:
         path = os.path.join(path, CHECKPOINT_FILE)
     if path.endswith((".pth", ".pt")):
         sd = torch.load(path, map_location="cpu", weights_only=True)
+        if "seeds" in sd and "model" in sd:  # train/ensemble_loop's stacked checkpoint
+            tag = os.path.basename(os.path.dirname(os.path.abspath(path)))
+            raise ValueError(
+                f"{path} is a stacked checkpoint of {sd['seeds']} ensemble members (the "
+                f"resume and weight-averaging source); read one member's extract, "
+                f"{tag}_seed0 .. {tag}_seed{sd['seeds'] - 1} beside it (saved for "
+                "'best' and 'wa')")
         if "model" in sd and "optimizer" in sd:  # a training checkpoint
             sd = sd["model"]
         return normalize_state_dict(sd)

@@ -101,10 +101,9 @@ class Trainer:
             warmup_steps=config.warmup_steps,
             warmup_update_every=config.warmup_update_every,
         )
-        self.train_step = make_train_step_fn(self.pre_config, config.loss)
-        self.eval_step = make_eval_step_fn(self.pre_config, config.loss)
-        # the module being trained (train() sets it); draws() reads which
-        # of its blocks drop
+        self._build_steps()
+        # the module being trained (train() sets it; an ensemble's first
+        # member); draws() reads which of its blocks drop
         self.model: torch.nn.Module | None = None
         self._profiler = None
         self._tb = None
@@ -116,6 +115,11 @@ class Trainer:
         # epoch-end loss fetch, which waits for the card)
         self.meters: dict[str, AverageMeter] = {}
         self.train_seconds: dict[int, float] = {}
+
+    def _build_steps(self):
+        """The train and eval steps (the ensemble trainer builds its own)."""
+        self.train_step = make_train_step_fn(self.pre_config, self.config.loss)
+        self.eval_step = make_eval_step_fn(self.pre_config, self.config.loss)
 
     # ------------------------------------------------------ tensorboard
 
@@ -144,44 +148,57 @@ class Trainer:
 
     # ------------------------------------------------------------- state
 
-    def _new_model(self) -> torch.nn.Module:
+    def _new_model(self, seed: int | None = None) -> torch.nn.Module:
         """A module of the configured architecture, freshly initialised
-        from the config's seed (on the CPU)."""
+        from ``seed`` (default: the config's; on the CPU)."""
         cfg = self.config
         return create_model(
             cfg.model, label_dim=cfg.n_class, eff_b=cfg.eff_b, head_num=cfg.att_head,
             remat=cfg.remat, bn_momentum=cfg.bn_momentum,
-            generator=torch.Generator().manual_seed(cfg.seed),
+            generator=torch.Generator().manual_seed(cfg.seed if seed is None else seed),
         )
 
-    def init_state(self) -> TrainState:
-        """A fresh initialisation overlaid with ``pretrained_ckpt`` or, under
-        ``impretrain``, the ImageNet backbone that
-        ``models.pretrained.resolve_imagenet_checkpoint`` finds on disk (it
-        raises when there is none). The file is a full model in the
-        reference key layout (anything ``models.convert.load_variables``
-        reads), or a backbone alone, such as an ImageNet efficientnet_pytorch
-        or torchvision checkpoint: then the head, and for ResNet and MBNet
-        the 1-channel stem, stay fresh. As in the JAX trainer
-        (``psla_tpu/train/loop.py``), an EfficientNet or ResNet file without
-        ``attention`` keys is a backbone, and so is an MBNet file without
-        ``model.`` keys (torchvision's own layout)."""
+    def _pretrained(self) -> dict[str, torch.Tensor] | None:
+        """The state_dict of ``pretrained_ckpt`` or, under ``impretrain``, of
+        the ImageNet file that ``models.pretrained.resolve_imagenet_checkpoint``
+        finds on disk (it raises when there is none); None without either."""
         cfg = self.config
-        model = self._new_model()
         path = cfg.pretrained_ckpt
         if not path and cfg.impretrain:
             path = resolve_imagenet_checkpoint(cfg.model, cfg.eff_b)
             print(f"loading ImageNet pretrained backbone: {path}")
-        if path:
-            sd = load_variables(path)
-            if cfg.model == "mbnet":
-                backbone_only = not any(k.startswith("model.") for k in sd)
-            else:
-                backbone_only = not any("attention" in k for k in sd)
-            if backbone_only:
-                sd = convert_imagenet_state_dict(sd, cfg.model, model.state_dict())
-            model.load_state_dict(sd)
+        return load_variables(path) if path else None
+
+    def _convert_pretrained(self, sd: dict[str, torch.Tensor],
+                            init: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+        """A pretrained state_dict over a fresh model's ``init``. The file is
+        a full model in the reference key layout (anything
+        ``models.convert.load_variables`` reads), or a backbone alone, such
+        as an ImageNet efficientnet_pytorch or torchvision checkpoint: then
+        the head, and for ResNet and MBNet the 1-channel stem, stay fresh.
+        As in the JAX trainer (``psla_tpu/train/loop.py``), an EfficientNet
+        or ResNet file without ``attention`` keys is a backbone, and so is
+        an MBNet file without ``model.`` keys (torchvision's own layout)."""
+        model = self.config.model
+        if model == "mbnet":
+            backbone_only = not any(k.startswith("model.") for k in sd)
+        else:
+            backbone_only = not any("attention" in k for k in sd)
+        return convert_imagenet_state_dict(sd, model, init) if backbone_only else sd
+
+    def init_state(self) -> TrainState:
+        """A fresh initialisation from the config's seed, overlaid with the
+        pretrained file (``_pretrained``, ``_convert_pretrained``) if any."""
+        model = self._new_model()
+        sd = self._pretrained()
+        if sd is not None:
+            model.load_state_dict(self._convert_pretrained(sd, model.state_dict()))
         return create_train_state(model, self.schedule, step=0, device=self.device)
+
+    @staticmethod
+    def _models(state: TrainState) -> list[torch.nn.Module]:
+        """The modules a state trains (an ensemble's members)."""
+        return [state.model]
 
     def draws(self, step: int, batch_size: int) -> TrainDraws:
         """Global step ``step``'s random draws, from its own generator
@@ -194,26 +211,39 @@ class Trainer:
     def _ckpt_dir(self, tag) -> str:
         return os.path.join(self.exp_dir, "models", str(tag))
 
-    def save_checkpoint(self, state: TrainState, tag):
+    @staticmethod
+    def _checkpoint(state: TrainState) -> dict:
+        """What a checkpoint file holds: {"step", "model", "optimizer"}."""
+        return {"step": int(state.step), "model": state.model.state_dict(),
+                "optimizer": state.optimizer.state_dict()}
+
+    def _write_checkpoint(self, payload: dict, tag):
         path = self._ckpt_dir(tag)
         os.makedirs(path, exist_ok=True)
         tmp = os.path.join(path, CHECKPOINT_FILE + ".tmp")
-        torch.save({"step": int(state.step), "model": state.model.state_dict(),
-                    "optimizer": state.optimizer.state_dict()}, tmp)
+        torch.save(payload, tmp)
         os.replace(tmp, os.path.join(path, CHECKPOINT_FILE))
+
+    def save_checkpoint(self, state: TrainState, tag):
+        self._write_checkpoint(self._checkpoint(state), tag)
 
     def _load(self, tag) -> dict:
         return torch.load(os.path.join(self._ckpt_dir(tag), CHECKPOINT_FILE),
                           map_location="cpu", weights_only=True)
 
-    def restore_checkpoint(self, tag) -> TrainState:
-        ckpt = self._load(tag)
+    def _state_from(self, ckpt: dict) -> TrainState:
+        """The state of a checkpoint's "model" and "step", with its
+        "optimizer" if it has one (else a fresh Adam)."""
         model = self._new_model()
         model.load_state_dict(ckpt["model"])
         state = create_train_state(model, self.schedule, step=int(ckpt["step"]),
                                    device=self.device)
-        state.optimizer.load_state_dict(ckpt["optimizer"])
+        if "optimizer" in ckpt:
+            state.optimizer.load_state_dict(ckpt["optimizer"])
         return state
+
+    def restore_checkpoint(self, tag) -> TrainState:
+        return self._state_from(self._load(tag))
 
     # ----------------------------------------------------------- profiling
 
@@ -288,9 +318,10 @@ class Trainer:
         else:
             progress = _fresh_progress()
             state = self.init_state()
-        self.model = state.model
+        models = self._models(state)
+        self.model = models[0]
 
-        n_params = sum(p.numel() for p in state.model.parameters())
+        n_params = sum(p.numel() for m in models for p in m.parameters())
         print(f"Total parameter number is : {n_params / 1e6:.3f} million")
 
         result_rows = np.zeros((cfg.n_epochs, 10))
@@ -548,10 +579,8 @@ class Trainer:
             shutil.rmtree(path)
         if count == 0:
             raise FileNotFoundError(f"no checkpoints in epochs [{start_epoch}, {end_epoch}]")
-        model = self._new_model()
-        model.load_state_dict(
-            {k: v / count if v.is_floating_point() else v for k, v in total.items()})
-        state = create_train_state(model, self.schedule, step=0, device=self.device)
+        state = self._state_from({"step": 0, "model": {
+            k: v / count if v.is_floating_point() else v for k, v in total.items()}})
         self.save_checkpoint(state, "wa")
         stats, _ = self.validate(state, self.val_loader, "wa")
         mAP = float(np.mean([s["AP"] for s in stats]))

@@ -51,12 +51,17 @@ class TrainDraws(NamedTuple):
     keep: torch.Tensor | None
 
 
-def step_generator(seed: int, step: int, device: str | torch.device) -> torch.Generator:
+def step_generator(seed: int, step: int, device: str | torch.device,
+                   member: int | None = None) -> torch.Generator:
     """The generator of global step ``step``'s draws, on ``device``: the
     counterpart of the JAX step's ``fold_in(rng, step)``. Its seed is a
     fixed function of (seed, step), so a resumed run draws what the
-    uninterrupted run drew."""
-    words = np.random.SeedSequence([seed, 1, step]).generate_state(2)
+    uninterrupted run drew. An ensemble member's stream appends its index
+    ``member`` (``fold_in(fold_in(rng, m), step)`` in
+    ``psla_tpu/parallel/ensemble.py``); ``member=None`` is the single
+    model's."""
+    entropy = [seed, 1, step] if member is None else [seed, 1, step, member]
+    words = np.random.SeedSequence(entropy).generate_state(2)
     return torch.Generator(device=device).manual_seed(int(words[0]) | int(words[1]) << 32)
 
 

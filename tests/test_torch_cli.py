@@ -97,7 +97,7 @@ def test_resume_reproduces_the_uninterrupted_run_exactly(corpus, tmp_path):
 
 @pytest.mark.parametrize("extra,match", [
     (("--num-devices", "2"), "item 6"),
-    (("--ensemble-seeds", "3"), "item 7"),
+    (("--ensemble-seeds", "2", "--num-devices", "2"), "item 6"),
     (("--act-compress", "qdq"), "item 9"),
     (("--dtype", "bfloat16"), "item 10"),
 ])
