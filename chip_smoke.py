@@ -162,6 +162,28 @@ result line):
    per-seed prediction matrices, the ``best``/``wa`` extracts; and
    ``tools/ensemble.ensemble_eval`` on best_seed0 and best_seed1 on the
    card, within 1e-5 of the protocol's per-seed matrices.
+12. Data parallelism (``torch.distributed``). NCCL takes one rank a card,
+   so world 2 runs under gloo with both ranks on cuda:0: two processes
+   sharing one card, not scaling. (a) World 1 under NCCL (RANK=0,
+   WORLD_SIZE=1, ``maybe_initialize``): the batch-100 step through the
+   mesh held to phase 6's one-process step (loss and running statistics
+   1e-5, parameters 2 x lr), one fbank launch, then timed. (b) World 2,
+   50 clips a rank, from (a)'s state and draws: the first step held to
+   (a)'s at the JAX package's data-parallel bars (tests/test_parallel.py:
+   90-100) and the statistics within 1e-5, one launch a rank a step, the
+   timed steps and each rank's peak memory, and the eval step of a global
+   batch, gathered, within 1e-5 of the one-process eval step. (c)
+   ``psla-torch-train --num-devices 2`` (``cli.run`` in each spawned rank)
+   on phase 7's corpus writer: 2 epochs, then 1 and ``--resume`` to 2;
+   each rank's launches equal its steps plus its eval batches, only rank
+   0 writes, the resume samples and draws alike. (d) Serving:
+   ``num_devices=2`` raising on one card, naming it.
+   ``--data-parallel N`` runs this phase alone on N cards under NCCL, one
+   rank a card (a 4-card machine: ``--data-parallel 4``); its (d) serves
+   with N replicas on cuda:0..N-1, held within 1e-5 of one device, one
+   launch a replica a dispatch, timed beside one device, with where a
+   dispatch's time goes (host issue, the input copies, each card's
+   kernels).
 
 The line before the last is a JSON object with one record per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -170,6 +192,7 @@ last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import builtins
 import concurrent.futures
 import csv
 import dataclasses
@@ -177,6 +200,7 @@ import json
 import os
 import re
 import shutil
+import socket
 import struct
 import subprocess
 import sys
@@ -188,6 +212,8 @@ import urllib.request
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.multiprocessing
 
 from psla_tpu_torch import assets, cli
 from psla_tpu_torch.config import from_preset
@@ -230,16 +256,18 @@ from psla_tpu_torch.parallel.ensemble import (
     make_ensemble_eval_step,
     make_ensemble_train_step,
 )
+from psla_tpu_torch.parallel.distributed import allgather_host, maybe_initialize
+from psla_tpu_torch.parallel.mesh import make_mesh, shard_batch
 from psla_tpu_torch.tools.serve import InferenceEngine, make_server
 from psla_tpu_torch.train.ensemble_loop import EnsembleTrainer
 from psla_tpu_torch.train.loop import Trainer
 from psla_tpu_torch.train.optim import psla_lr_schedule
-from psla_tpu_torch.train.state import create_train_state
+from psla_tpu_torch.train.state import create_train_state, replicate_state
 from psla_tpu_torch.train.step import (
     _wav_batch,
+    build_eval_step,
+    build_train_step,
     draw_train,
-    make_eval_step_fn,
-    make_train_step_fn,
 )
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): float32
@@ -1138,8 +1166,8 @@ def step_held_to_plain(cfg: PreprocessConfig, batch: dict, make_state, what: str
     lr = state.schedule(state.step)
     param_atol = 2 * lr
     plain_state = make_state()
-    step = make_train_step_fn(cfg)
-    plain_step = make_train_step_fn(dataclasses.replace(cfg, fbank_method="fft64"))
+    step = build_train_step(cfg)
+    plain_step = build_train_step(dataclasses.replace(cfg, fbank_method="fft64"))
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     draws = draw_train(gen, state.model, size, cfg)
     n_keep = 0 if draws.keep is None else draws.keep.shape[0]
@@ -2687,7 +2715,7 @@ def ensemble_step(b2: tuple[float, float]) -> int:
     check(bool(np.all(np.isfinite(seed_loss))) and mean_err <= 1e-6,
           f"ensemble losses {seed_loss}, mean {float(metrics['loss'])}")
     check(abs(seed_loss[0] - seed_loss[1]) > 1e-6, "the members' losses are equal")
-    single = make_train_step_fn(cfg)
+    single = build_train_step(cfg)
     for i, held in enumerate(state.members):
         singles[i], m = single(singles[i], batch, draws[i])
         after, want = held.model.state_dict(), singles[i].model.state_dict()
@@ -2740,7 +2768,7 @@ def ensemble_eval_step() -> int:
     cfg = train_config()
     batch = train_batch(cfg, seed=8, batch=STEP_BATCH)
     state = ensemble_state(ENSEMBLE_SEEDS[:HELD_MEMBERS])
-    step, single = make_ensemble_eval_step(cfg), make_eval_step_fn(cfg)
+    step, single = make_ensemble_eval_step(cfg), build_eval_step(cfg)
     torch.cuda.synchronize()
     fbank_cuda.LAUNCHES = 0
     probs, losses = step(state, batch)
@@ -2883,6 +2911,472 @@ def ensemble_phase(b2: tuple[float, float]) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 12
+
+# Data parallelism on torch.distributed. NCCL takes one rank a card, and the
+# script needs one card: (a) runs world 1 under NCCL in this process; (b)
+# and (c) run world 2 under gloo with both ranks on cuda:0, two processes
+# sharing one card over loopback, so their times measure that, not scaling
+# over cards. ``--data-parallel N`` runs this phase alone with N ranks
+# under NCCL, one a card.
+DP_WORLD = 2
+# tests/test_parallel.py:90-100: the loss, the parameters (max in units of
+# lr, mean, 99th percentile) of a data-parallel step against one device's
+DP_LOSS_ATOL, DP_PARAM_LRS, DP_PARAM_MEAN, DP_PARAM_P99 = 3e-4, 3, 1e-5, 1e-4
+DP_EVAL_ATOL = 1e-5  # tests/test_parallel.py:115, the sharded eval step
+
+
+def free_port() -> int:
+    """A free TCP port on the loopback address, for NCCL's rendezvous."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def join_group(rank: int, store: str, world: int, backend: str):
+    """A spawned rank of phase 12: under gloo every rank on cuda:0, under
+    NCCL rank r on cuda:r."""
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    check(maybe_initialize(rank=rank, world_size=world, init_method=store, backend=backend,
+                           local_rank=0 if backend == "gloo" else rank, device=DEVICE),
+          f"the {backend} group did not start")
+
+
+def where(world: int, backend: str) -> str:
+    return ("one card (cuda:0 for every rank)" if backend == "gloo"
+            else f"{world} cards (cuda:0-{world - 1})")
+
+
+def spawn_ranks(fn, root: str, world: int, backend: str, *args) -> list[dict]:
+    """``fn(rank, store, root, world, backend, *args)`` in ``world`` spawned
+    processes meeting at a file store under ``root``; each saves its results
+    to ``{root}/rank{rank}.pt``, which this returns in rank order. A failing
+    rank fails the phase."""
+    store = "file://" + os.path.join(root, "store")
+    torch.multiprocessing.spawn(fn, args=(store, root, world, backend, *args), nprocs=world,
+                                join=True)
+    return [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def param_diffs(got: dict, want: dict, keys) -> np.ndarray:
+    return torch.cat([(got[k].float().cpu() - want[k].float().cpu()).abs().flatten()
+                      for k in keys]).numpy()
+
+
+def dp_world_one(b2: tuple[float, float] | None) -> tuple[int, dict, float, tuple]:
+    """(a) World 1 under NCCL (RANK=0, WORLD_SIZE=1 and ``maybe_initialize``):
+    the data-parallel step (``build_train_step`` on the mesh) held to phase
+    6's one-process step on the same state, batch and draws (loss and
+    running statistics 1e-5, parameters 2 x lr), one fbank launch (set to 0
+    just before, read just after), then timed beside phase 6's step ``b2``
+    (device ms, clips/s) if given. Returns the launches, the held step's
+    state_dict on the host, its loss, and its (device ms, clips/s)."""
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(free_port()))
+    os.environ.update(env)
+    try:
+        check(maybe_initialize(), "the NCCL group did not start")
+        mesh = make_mesh(device=DEVICE)
+        check(dist.get_backend() == "nccl" and (mesh.world, mesh.rank) == (1, 0),
+              f"{dist.get_backend()} group of {mesh.world}")
+        cfg, sd = train_config(), seeded_state_dict(SEEDS[0])
+        batch = train_batch(cfg)
+        ref_state = train_state(sd)
+        gen = torch.Generator(device=DEVICE).manual_seed(0)
+        draws = draw_train(gen, ref_state.model, STEP_BATCH, cfg)
+        lr = ref_state.schedule(ref_state.step)
+        ref_state, ref_metrics = build_train_step(cfg)(ref_state, batch, draws)
+        want = {k: v.clone() for k, v in ref_state.model.state_dict().items()}
+        del ref_state
+        state = replicate_state(train_state(sd), mesh)
+        step = build_train_step(cfg, "BCE", mesh)
+        torch.cuda.synchronize()
+        fbank_cuda.LAUNCHES = 0
+        state, metrics = step(state, batch, draws)
+        torch.cuda.synchronize()
+        launches = fbank_cuda.LAUNCHES
+        after = state.model.state_dict()
+        stats = [k for k in after if k.endswith(("running_mean", "running_var"))]
+        params = [k for k, _ in state.model.named_parameters()]
+        loss = float(metrics["loss"])
+        loss_err = abs(loss - float(ref_metrics["loss"]))
+        stats_err, param_err = max_diff(after, want, stats), max_diff(after, want, params)
+        bit_equal = all(torch.equal(after[k], want[k]) for k in after)
+        print(f"(a) world 1 under NCCL, audioset_full step at batch {STEP_BATCH} through the "
+              f"mesh: fbank launches {launches}; vs phase 6's one-process step: loss "
+              f"{loss_err:.3e} (bar {STEP_LOSS_ATOL}), running statistics {stats_err:.3e} "
+              f"(bar {STATS_ATOL}), parameters {param_err:.3e} (bar {2 * lr}); bit-equal: "
+              f"{bit_equal}")
+        check(launches == 1, f"{launches} fbank launches in a world-1 step")
+        check(loss_err <= STEP_LOSS_ATOL and stats_err <= STATS_ATOL and param_err <= 2 * lr,
+              f"world-1 step off phase 6's: {loss_err}, {stats_err}, {param_err}")
+        host = {k: v.detach().cpu().clone() for k, v in after.items()}
+        state, device_ms, wall_ms, peak, _ = timed_steps(step, state, batch, gen, cfg)
+        beside = ("" if b2 is None else f"; phase 6's step in this call {b2[0]:.2f} ms "
+                  f"device, {b2[1]:.1f} clips/s")
+        print(f"(a) world 1 under NCCL, {TIMED_STEPS} steps after {WARM_STEPS}: device "
+              f"{np.mean(device_ms):.2f} ms/step (CUDA events; {min(device_ms):.2f}-"
+              f"{max(device_ms):.2f}), wall {wall_ms:.2f} ms/step, "
+              f"{STEP_BATCH / wall_ms * 1e3:.1f} clips/s, peak {peak / 2**30:.2f} GiB{beside} "
+              f"({card()})")
+        return launches, host, loss, (float(np.mean(device_ms)), STEP_BATCH / wall_ms * 1e3)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k in env:
+            os.environ.pop(k, None)
+
+
+def dp_step_rank(rank: int, store: str, root: str, world: int, backend: str):
+    """(b) One rank: its share of phase 6's batch through the data-parallel
+    step from the same state with the global batch's draws (the first
+    step's fbank launches counted), then 2 warm-up and 10 timed steps, then
+    the eval step on its rows of a batch of 100, gathered."""
+    join_group(rank, store, world, backend)
+    try:
+        mesh = make_mesh(device=DEVICE)
+        cfg, sd = train_config(), seeded_state_dict(SEEDS[0])
+        batch = shard_batch(train_batch(cfg), mesh)
+        state = replicate_state(train_state(sd), mesh)
+        step = build_train_step(cfg, "BCE", mesh)
+        gen = torch.Generator(device=DEVICE).manual_seed(0)
+        draws = draw_train(gen, state.model, STEP_BATCH, cfg)
+        torch.cuda.synchronize()
+        fbank_cuda.LAUNCHES = 0
+        state, metrics = step(state, batch, draws)
+        torch.cuda.synchronize()
+        out = {"launches": fbank_cuda.LAUNCHES, "loss": float(metrics["loss"]),
+               "state": {k: v.detach().cpu().clone()
+                         for k, v in state.model.state_dict().items()}}
+        for _ in range(WARM_STEPS):
+            state, _ = step(state, batch, draw_train(gen, state.model, STEP_BATCH, cfg))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fbank_cuda.LAUNCHES = 0
+        events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                  for _ in range(TIMED_STEPS)]
+        t0 = time.perf_counter()
+        for start, end in events:
+            start.record()
+            state, metrics = step(state, batch, draw_train(gen, state.model, STEP_BATCH, cfg))
+            end.record()
+        torch.cuda.synchronize()
+        out.update(wall_ms=(time.perf_counter() - t0) * 1e3 / TIMED_STEPS,
+                   device_ms=[a.elapsed_time(b) for a, b in events],
+                   peak=torch.cuda.max_memory_allocated(), timed_launches=fbank_cuda.LAUNCHES,
+                   last_loss=float(metrics["loss"]))
+        del state
+        eval_batch = train_batch(cfg, seed=6)
+        probs, losses = build_eval_step(cfg)(train_state(sd), shard_batch(eval_batch, mesh))
+        out["eval"] = (allgather_host(probs), allgather_host(losses))
+        torch.save(out, os.path.join(root, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_world(held: dict, held_loss: float, one: tuple[float, float], world: int,
+             backend: str) -> dict:
+    """(b) ``world`` ranks (2 under gloo on cuda:0, or one a card under
+    NCCL), global batch 100, from (a)'s state and draws: the first step
+    held to (a)'s at the JAX package's data-parallel bars and the running
+    statistics within 1e-5, one fbank launch a rank a step, the timed steps
+    beside (a)'s ``one`` (device ms, clips/s), and the eval step of the
+    global batch, gathered, within 1e-5 of the one-process eval step.
+    Returns each rank's launches in its held step."""
+    root = tempfile.mkdtemp(prefix="psla_dp_step_")
+    try:
+        got = spawn_ranks(dp_step_rank, root, world, backend)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    cfg = train_config()
+    lr = psla_lr_schedule(STEP_LR, STEPS_PER_EPOCH, lrscheduler_start=10,
+                          lrscheduler_decay=0.5, warmup=True)(START_STEP)
+    r0 = got[0]
+    stats = [k for k in held if k.endswith(("running_mean", "running_var"))]
+    params = [k for k in held if k not in stats]
+    check(all(torch.equal(r0["state"][k], g["state"][k]) for g in got[1:] for k in held),
+          "the ranks' replicas differ after a step")
+    diff = param_diffs(r0["state"], held, params)
+    stats_err = max_diff(r0["state"], held, stats)
+    loss_err = abs(r0["loss"] - held_loss)
+    print(f"(b) world {world} under {backend} on {where(world, backend)}, global batch "
+          f"{STEP_BATCH}, {STEP_BATCH // world} a rank: fbank launches a rank in the held step "
+          f"{[g['launches'] for g in got]}, in {TIMED_STEPS} timed steps "
+          f"{[g['timed_launches'] for g in got]}; vs (a)'s step: loss {loss_err:.3e} (bar "
+          f"{DP_LOSS_ATOL}), parameters max {diff.max():.3e} (bar {DP_PARAM_LRS * lr}) mean "
+          f"{diff.mean():.3e} (bar {DP_PARAM_MEAN}) p99 {np.percentile(diff, 99):.3e} (bar "
+          f"{DP_PARAM_P99}), running statistics {stats_err:.3e} (bar {STATS_ATOL}); replicas "
+          f"equal")
+    check(all(g["launches"] == 1 and g["timed_launches"] == TIMED_STEPS for g in got),
+          f"world {world}: not one fbank launch a rank a step")
+    check(loss_err <= DP_LOSS_ATOL and diff.max() <= DP_PARAM_LRS * lr
+          and diff.mean() <= DP_PARAM_MEAN and np.percentile(diff, 99) <= DP_PARAM_P99
+          and stats_err <= STATS_ATOL, f"world-{world} step off (a)'s")
+    for rank, g in enumerate(got):
+        print(f"(b) rank {rank}: {TIMED_STEPS} steps after {WARM_STEPS}: wall "
+              f"{g['wall_ms']:.2f} ms/step ({STEP_BATCH / g['wall_ms'] * 1e3:.1f} clips/s of "
+              f"the global batch), device {np.mean(g['device_ms']):.2f} ms/step by CUDA "
+              f"events (with the waits on the other ranks); peak memory "
+              f"{g['peak'] / 2**30:.2f} GiB; last loss {g['last_loss']:.4f}; (a)'s one-card "
+              f"step {one[0]:.2f} ms device, {one[1]:.1f} clips/s ({card()})")
+    eval_batch = train_batch(cfg, seed=6)
+    want, want_loss = build_eval_step(cfg)(train_state(seeded_state_dict(SEEDS[0])),
+                                            eval_batch)
+    errs = [max(float(np.abs(g["eval"][0] - want.cpu().numpy()).max()),
+                float(np.abs(g["eval"][1] - want_loss.cpu().numpy()).max())) for g in got]
+    print(f"(b) eval step of the global batch {STEP_BATCH}, gathered on each rank, vs the "
+          f"one-process eval step: max abs err {errs} (bar {DP_EVAL_ATOL})")
+    check(max(errs) <= DP_EVAL_ATOL, f"gathered eval off by {errs}")
+    return {"launches_dp_train_step_per_rank": [g["launches"] for g in got]}
+
+
+def audited(fn, exp_dir: str):
+    """``fn()`` and the files under ``exp_dir`` this process opened for
+    writing (``open`` and ``torch.save``, which writes a path from C++)."""
+    written = []
+    real_open, real_save = builtins.open, torch.save
+
+    def record(file):
+        if isinstance(file, (str, os.PathLike)):
+            path = os.path.abspath(os.fspath(file))
+            if path.startswith(exp_dir):
+                written.append(os.path.relpath(path, exp_dir))
+
+    def audited_open(file, mode="r", *args, **kwargs):
+        if set(mode) & set("wax+"):
+            record(file)
+        return real_open(file, mode, *args, **kwargs)
+
+    def audited_save(obj, f, *args, **kwargs):
+        record(f)
+        return real_save(obj, f, *args, **kwargs)
+
+    builtins.open, torch.save = audited_open, audited_save
+    try:
+        return fn(), written
+    finally:
+        builtins.open, torch.save = real_open, real_save
+
+
+def dp_cli_rank(rank: int, store: str, root: str, world: int, backend: str,
+                base: list[str]):
+    """(c) One rank of ``cli.run --num-devices N``: 2 epochs, then 1 epoch
+    and ``--resume`` to 2, each run's fbank launches counted (set to 0 just
+    before, read just after), what it sampled and drew, and the files it
+    wrote."""
+    join_group(rank, store, world, backend)
+    try:
+        out = {}
+        runs = (("full", ["--exp-dir", os.path.join(root, "exp"), "--n-epochs", "2"]),
+                ("first", ["--exp-dir", os.path.join(root, "resumed"), "--n-epochs", "1"]),
+                ("second", ["--exp-dir", os.path.join(root, "resumed"), "--n-epochs", "2",
+                            "--resume"]))
+        for name, extra in runs:
+            torch.cuda.synchronize()
+            fbank_cuda.LAUNCHES = 0
+            t0 = time.perf_counter()
+            trainer, written = audited(lambda: run_cli(base + extra), root)
+            torch.cuda.synchronize()
+            out[name] = {"launches": fbank_cuda.LAUNCHES, "wall": time.perf_counter() - t0,
+                         "indices": trainer.indices,
+                         "drawn": {k: v.cpu() for k, v in trainer.drawn.items()},
+                         "steps": trainer.steps_per_epoch,
+                         "val_batches": trainer.val_loader.batches_per_epoch(),
+                         "seconds": trainer.train_seconds, "written": written}
+        torch.save(out, os.path.join(root, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_trainer(root: str, train_json: str, val_json: str, world: int, backend: str) -> dict:
+    """(c) ``cli.run --num-devices N`` (the ranks started here, each joining
+    the group before ``cli.run``) at the audioset_full preset on phase 7's
+    corpus: each rank's fbank launches equal its train steps plus its eval
+    batches, only rank 0 writes, and the resumed run samples and draws what
+    the uninterrupted one did, its losses within 2e-2."""
+    base = ["--preset", "audioset_full", "--data-train", train_json, "--data-val", val_json,
+            "--label-csv", assets.label_csv_for("audioset"), "--impretrain", "False",
+            "--warmup", "False", "--wa_start", "1", "--wa_end", "2", "--eff_b", str(EFF_B),
+            "--target_length", str(TARGET), "-b", str(STEP_BATCH), "--num-devices",
+            str(world), "--device", DEVICE]
+    got = spawn_ranks(dp_cli_rank, root, world, backend, base)
+    full = got[0]["full"]
+    spe, vb = full["steps"], full["val_batches"]
+    # train steps and a validation each epoch, then weight averaging's
+    want = {"full": 2 * spe + 3 * vb, "first": spe + 2 * vb, "second": spe + 2 * vb}
+    for rank, g in enumerate(got):
+        counts = {name: g[name]["launches"] for name in want}
+        print(f"(c) cli.run --num-devices {world} ({backend}, {where(world, backend)}), rank "
+              f"{rank}: {spe} steps an epoch of {STEP_BATCH // world} clips, {vb} val batches; fbank "
+              f"launches {counts} (want {want}); uninterrupted run {g['full']['wall']:.1f} s, "
+              f"epoch 2's train loop {g['full']['seconds'][2]:.3f} s "
+              f"({spe * STEP_BATCH / g['full']['seconds'][2]:.1f} clips/s of the global "
+              f"batch; {card()})")
+        check(counts == want, f"rank {rank}: fbank launches {counts}, want {want}")
+    check(not any(g[name]["written"] for g in got[1:] for name in want),
+          f"ranks 1-{world - 1} wrote {[[g[n]['written'] for n in want] for g in got[1:]]}")
+    written = set(got[0]["full"]["written"])
+    for name in ("exp/result.csv", "exp/progress.json", "exp/wa_result.csv",
+                 "exp/predictions/target.csv", "exp/predictions/predictions_2.csv",
+                 "exp/models/epoch_2/checkpoint.pth.tmp", "exp/models/best/checkpoint.pth.tmp",
+                 "exp/models/wa/checkpoint.pth.tmp"):
+        check(name in written, f"rank 0 did not write {name}")
+    print(f"(c) files written: rank 0 {len(written)} in the uninterrupted run, the other "
+          f"ranks none")
+    for rank, g in enumerate(got):
+        for epoch, run in ((1, "first"), (2, "second")):
+            check(np.array_equal(g["full"]["indices"][epoch], g[run]["indices"][epoch]),
+                  f"rank {rank}, epoch {epoch}: the resumed run sampled other clips")
+        resumed = {**g["first"]["drawn"], **g["second"]["drawn"]}
+        check(sorted(resumed) == sorted(g["full"]["drawn"]), "the resumed run's steps")
+        check(all(torch.equal(g["full"]["drawn"][k], resumed[k]) for k in resumed),
+              f"rank {rank}: the resumed run drew otherwise")
+    result = np.loadtxt(os.path.join(root, "exp", "result.csv"), delimiter=",")
+    res2 = np.loadtxt(os.path.join(root, "resumed", "result.csv"), delimiter=",")
+    diffs = np.abs(res2[1, 5:7] - result[1, 5:7])
+    print(f"(c) resume: each rank's sampled indices and draws equal to the uninterrupted "
+          f"run's; epoch 2 train and valid losses {result[1, 5]:.6f}, {result[1, 6]:.6f} vs "
+          f"{res2[1, 5]:.6f}, {res2[1, 6]:.6f}: max diff {diffs.max():.3e} (bar "
+          f"{TRAJECTORY_BAR})")
+    check(result.shape == (2, 10) and bool(np.all(np.isfinite(result))), f"result {result}")
+    check(diffs.max() <= TRAJECTORY_BAR, f"resumed losses off by {diffs.max()}")
+    return {"launches_dp_trainer_run_per_rank": [g["full"]["launches"] for g in got]}
+
+
+def dispatch_breakdown(engine: InferenceEngine, wav: np.ndarray, mean: np.ndarray,
+                       lengths: np.ndarray, reps: int = 10) -> str:
+    """Where a warm dispatch's time goes, for ROADMAP Queue 3 item 8. Over
+    ``reps`` dispatches back to back (as ``dispatch_rate`` runs them), the
+    host ms to issue each (``engine.issue``: every shard's input copies,
+    fbank and forwards, queued from one thread) and to its fetched
+    probabilities; then the shards' input copies alone, to their end, from
+    pageable numpy memory and from pinned memory (host clock, means of
+    ``reps``); then, over one profiled dispatch, each device's kernel
+    launches and kernel ms (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    shards = np.array_split(np.arange(len(wav)), len(engine.devices))
+    host = [(torch.from_numpy(wav[r]), torch.from_numpy(mean[r]), torch.from_numpy(lengths[r]))
+            for r in shards]
+    pinned = [tuple(t.pin_memory() for t in ts) for ts in host]
+
+    def sync():
+        for d in set(engine.devices):
+            torch.cuda.synchronize(d)
+
+    for _ in range(2):
+        engine.batch_probs(wav, mean, lengths)
+    issue, wall = [], []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        outs = engine.issue(wav, mean, lengths)
+        t1 = time.perf_counter()
+        [o.cpu() for o in outs]
+        issue.append((t1 - t0) * 1e3)
+        wall.append((time.perf_counter() - t0) * 1e3)
+    copy_ms = {}
+    for name, parts in (("pageable", host), ("pinned", pinned)):
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            for ts, d in zip(parts, engine.devices):
+                for t in ts:
+                    t.to(d, non_blocking=True)
+        sync()
+        copy_ms[name] = (time.perf_counter() - t0) * 1e3 / reps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        engine.batch_probs(wav, mean, lengths)
+    kernels: dict[int, list[float]] = {}
+    for e in prof.events():
+        if str(e.device_type).endswith("CUDA"):
+            kernels.setdefault(e.device_index, []).append(e.self_device_time_total / 1e3)
+    per_device = ", ".join(f"cuda:{d} {len(v)} kernels {sum(v):.2f} ms"
+                           for d, v in sorted(kernels.items())) or "not measured"
+    return (f"issue {np.mean(issue):.2f} ms on the host ({min(issue):.2f}-{max(issue):.2f}), "
+            f"fetched after {np.mean(wall):.2f} ms ({min(wall):.2f}-{max(wall):.2f}); the "
+            f"input copies alone {copy_ms['pageable']:.3f} ms (pageable), "
+            f"{copy_ms['pinned']:.3f} ms (pinned); profiled dispatch: {per_device}")
+
+
+def dp_serving(world: int) -> int | None:
+    """(d) Serving with ``world`` replicas at micro-batch 16, 2 members,
+    float32. ``num_devices`` past the visible cards raises, naming them:
+    with fewer cards (the one-card run) that is the check. With as many,
+    ``num_devices=world`` places the replicas on cuda:0..world-1: within
+    1e-5 of one device, one fbank launch a replica a dispatch (set to 0
+    just before, read just after), both timed, and where a dispatch's time
+    goes (``dispatch_breakdown``). Returns those launches, None without
+    the cards."""
+    names = make_name_dict(assets.label_csv_for("audioset"))
+    config = PreprocessConfig(target_length=TARGET)
+    members = [member(seeded_state_dict(s), torch.float32) for s in SEEDS]
+    cards = torch.cuda.device_count()
+    if cards < world:
+        try:
+            InferenceEngine(members, config, names, batch_size=BATCH, num_devices=world,
+                            device=DEVICE)
+        except ValueError as e:
+            print(f"(d) --num-devices {world} on this machine: ValueError: {e}; the "
+                  f"replicas are served with --data-parallel {world} on {world} cards")
+            check(f"only {cards} devices are visible" in str(e), str(e))
+            return None
+        check(False, "num_devices past the cards did not raise")
+    many = InferenceEngine(members, config, names, batch_size=BATCH, num_devices=world,
+                           device=DEVICE)
+    one = InferenceEngine(members, config, names, batch_size=BATCH, device=DEVICE)
+    try:
+        rng = np.random.default_rng(12)
+        n = one.chunk_samples
+        wav = np.stack([tones(rng, n) for _ in range(BATCH)])
+        mean = wav.mean(axis=1).astype(np.float32)
+        lengths = np.full(BATCH, n, np.int32)
+        lengths[::5] = n // 3
+        torch.cuda.synchronize()
+        fbank_cuda.LAUNCHES = 0
+        got = many.batch_probs(wav, mean, lengths)
+        launches = fbank_cuda.LAUNCHES
+        want = one.batch_probs(wav, mean, lengths)
+        err = float(np.abs(got - want).max())
+        rate1, ms1, _ = dispatch_rate(one, rng)
+        rate2, ms2, _ = dispatch_rate(many, rng)
+        split1 = dispatch_breakdown(one, wav, mean, lengths)
+        split2 = dispatch_breakdown(many, wav, mean, lengths)
+    finally:
+        one.close()
+        many.close()
+    print(f"(d) serving, {world} replicas on {', '.join(map(str, many.devices))}, micro-batch "
+          f"{BATCH}, {len(SEEDS)} members, float32: fbank launches in a dispatch {launches}; "
+          f"vs one device: max abs err {err:.3e} (bar {DP_EVAL_ATOL}); {ms2:.2f} ms a "
+          f"dispatch ({rate2:.1f} clips/s) against one device's {ms1:.2f} ms ({rate1:.1f} "
+          f"clips/s) ({card()})")
+    print(f"(d) one device's dispatch: {split1}")
+    print(f"(d) {world} replicas' dispatch: {split2}")
+    check(launches == world, f"{launches} fbank launches in a {world}-replica dispatch")
+    check(err <= DP_EVAL_ATOL, f"{world}-replica serving off one device's by {err}")
+    return launches
+
+
+def dp_phase(b2: tuple[float, float] | None, world: int = DP_WORLD,
+             backend: str = "gloo") -> dict:
+    """Phase 12: data parallelism, (b)-(d) on ``world`` ranks under
+    ``backend``. Returns the fbank kernel's launches on its paths."""
+    t_phase = time.perf_counter()
+    launches, held, held_loss, one = dp_world_one(b2)
+    out = {"launches_dp_world1_step": launches}
+    torch.cuda.empty_cache()
+    out.update(dp_world(held, held_loss, one, world, backend))
+    root = tempfile.mkdtemp(prefix="psla_dp_trainer_")
+    try:
+        train_json, val_json, _ = write_corpus(root)
+        out.update(dp_trainer(root, train_json, val_json, world, backend))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["launches_dp_serving_dispatch"] = dp_serving(world)
+    print(f"phase 12: {time.perf_counter() - t_phase:.1f} s; fbank launches {out}")
+    return out
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -2891,6 +3385,9 @@ def main(argv=None) -> int:
     p.add_argument("--profile", action="store_true",
                    help="also print device time by kernel for one dispatch and one "
                         "train step")
+    p.add_argument("--data-parallel", type=int, default=None, metavar="N",
+                   help="run phase 12 alone on N cards under NCCL, one rank a card, "
+                        "held to the one-process step on one card")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -2898,6 +3395,15 @@ def main(argv=None) -> int:
         return 1
     t0 = time.perf_counter()
     header()
+    if args.data_parallel:
+        cards = torch.cuda.device_count()
+        check(cards >= args.data_parallel, f"{cards} cards for --data-parallel "
+                                           f"{args.data_parallel}")
+        dp_phase(None, args.data_parallel, "nccl")
+        print(f"total {time.perf_counter() - t0:.1f} s")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": cards}}))
+        return 0
     build()
     record = kernel_phase()
     record["launches"] = serving_phase(args.profile)
@@ -2915,6 +3421,8 @@ def main(argv=None) -> int:
     record.update(backbones_phase((step_ms, step_clips_s), args.profile))
     torch.cuda.empty_cache()
     record.update(ensemble_phase((step_ms, step_clips_s)))
+    torch.cuda.empty_cache()
+    record.update(dp_phase((step_ms, step_clips_s)))
     for r in records:
         check(r["launches"] > 0, f"kernel {r['name']} was not launched on its path")
     print(f"total {time.perf_counter() - t0:.1f} s")

@@ -7,6 +7,12 @@ flag overriding it. ``--device`` picks the card (the default, ``cuda``) or
 ``cpu``. Flags whose code the port has not yet refuse with their ROADMAP
 item (``config.unported``).
 
+Several ranks (data parallelism, one card each): under a launcher
+(``torchrun --nproc_per_node N -m psla_tpu_torch.cli ...``) the group comes
+from its environment; otherwise ``--num-devices N`` spawns N ranks on this
+host (NCCL on the cards, gloo with ``--device cpu``). ``--batch-size`` is
+the global batch either way: each rank loads batch_size / N rows.
+
 Example:
     psla-torch-train --preset audioset_full \\
         --data-train tr.json --data-val val.json --exp-dir exp/as
@@ -17,14 +23,20 @@ from __future__ import annotations
 import argparse
 import ast
 import dataclasses
+import json
+import os
 import sys
+import tempfile
 
 import torch
+import torch.distributed as dist
+import torch.multiprocessing
 
 from psla_tpu_torch.config import PRESETS, ExperimentConfig, unported
 from psla_tpu_torch.data.datafiles import load_datafile
 from psla_tpu_torch.data.loader import AudioLoader, LoaderConfig
 from psla_tpu_torch.data.sampler import compute_sample_weights
+from psla_tpu_torch.parallel.distributed import maybe_initialize, process_info
 from psla_tpu_torch.train.ensemble_loop import EnsembleTrainer
 from psla_tpu_torch.train.loop import Trainer
 from psla_tpu_torch.train.protocol import post_training_summary
@@ -89,7 +101,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to train on (cuda, cuda:1, cpu)")
     p.add_argument("--num-devices", type=int, default=None,
-                   help="more than 1: not ported yet (ROADMAP Queue 1 item 6)")
+                   help="ranks of data parallelism, one card each: under torchrun its world "
+                        "size (the default), else N > 1 spawns N ranks on this host")
     p.add_argument("--ensemble-seeds", type=int, default=None,
                    help="train this many seeds in lockstep on the card (seed, seed + 1, "
                         "...; a shared data stream, per-seed draws) and report their "
@@ -129,7 +142,14 @@ def config_from_args(args) -> ExperimentConfig:
 
 
 def make_loaders(cfg: ExperimentConfig):
-    """The train, val and (with ``data_eval``) eval loaders of one host."""
+    """The train, val and (with ``data_eval``) eval loaders of this rank:
+    its shard of each set, ``batch_size / world`` rows a batch
+    (``batch_size`` is the global batch)."""
+    rank, world = process_info()
+    if cfg.batch_size % world:
+        raise ValueError(f"--batch-size {cfg.batch_size} is the global batch and is not "
+                         f"divisible by the {world} ranks")
+    batch = cfg.batch_size // world
     pre = cfg.preprocess_config()
     buf = pre.fbank.buffer_length(cfg.target_length)
     train_df = load_datafile(cfg.data_train, cfg.label_csv)
@@ -138,17 +158,19 @@ def make_loaders(cfg: ExperimentConfig):
     weights = compute_sample_weights(train_df) if cfg.bal else None
     if cfg.bal:
         print("balanced sampler is being used")
+    shard = dict(host_id=rank, num_hosts=world)
     train_loader = AudioLoader(
         train_df,
-        LoaderConfig(batch_size=cfg.batch_size, buffer_samples=buf,
+        LoaderConfig(batch_size=batch, buffer_samples=buf,
                      num_workers=cfg.num_workers, mixup=cfg.mixup > 0, seed=cfg.seed,
-                     wire=cfg.wire),
+                     wire=cfg.wire, **shard),
         weights=weights,
     )
     val_loader = AudioLoader(
         val_df,
-        LoaderConfig(batch_size=cfg.batch_size, buffer_samples=buf,
-                     num_workers=cfg.num_workers, drop_remainder=False, wire=cfg.wire),
+        LoaderConfig(batch_size=batch, buffer_samples=buf,
+                     num_workers=cfg.num_workers, drop_remainder=False, wire=cfg.wire,
+                     **shard),
         shuffle=False,
     )
     eval_loader = None
@@ -156,18 +178,64 @@ def make_loaders(cfg: ExperimentConfig):
         eval_df = load_datafile(cfg.data_eval, cfg.label_csv)
         eval_loader = AudioLoader(
             eval_df,
-            LoaderConfig(batch_size=cfg.batch_size * 2, buffer_samples=buf,
-                         num_workers=cfg.num_workers, drop_remainder=False, wire=cfg.wire),
+            LoaderConfig(batch_size=batch * 2, buffer_samples=buf,
+                         num_workers=cfg.num_workers, drop_remainder=False, wire=cfg.wire,
+                         **shard),
             shuffle=False,
         )
     return train_loader, val_loader, eval_loader
 
 
+def _rank_main(rank: int, world: int, init_method: str, device: str, argv: list[str],
+               summary_path: str):
+    """One spawned rank: join the group, run, and (rank 0) write the summary.
+    The ranks share the host's cores: each takes its share of the intra-op
+    threads a process would take alone (``OMP_NUM_THREADS``, else the
+    cores)."""
+    torch.set_num_threads(max(1, torch.get_num_threads() // world))
+    maybe_initialize(rank=rank, world_size=world, init_method=init_method,
+                     local_rank=rank, device=device)
+    try:
+        summary = run(argv)
+        if rank == 0:
+            with open(summary_path, "w") as f:
+                json.dump(summary, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn(argv: list[str], world: int, device: str) -> dict:
+    """``run(argv)`` on ``world`` ranks spawned on this host (one card each),
+    meeting at a file store; rank 0's summary. A rank that fails fails the
+    run (``torch.multiprocessing.spawn`` stops the others and raises)."""
+    if torch.device(device).type == "cuda" and world > torch.cuda.device_count():
+        raise ValueError(f"requested num_devices={world} but only "
+                         f"{torch.cuda.device_count()} devices are visible")
+    with tempfile.TemporaryDirectory() as tmp:
+        summary_path = os.path.join(tmp, "summary.json")
+        torch.multiprocessing.spawn(
+            _rank_main, nprocs=world, join=True,
+            args=(world, "file://" + os.path.join(tmp, "store"), device, argv,
+                  summary_path))
+        with open(summary_path) as f:
+            return json.load(f)
+
+
 def run(argv=None) -> dict:
-    """Library entry: parse, train, and return the post-training summary."""
+    """Library entry: parse, train, and return the post-training summary.
+    Joins the launcher's process group if there is one; ``--num-devices
+    N`` > 1 without one spawns N ranks (``_spawn``)."""
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
+    maybe_initialize(device=args.device)
     cfg = config_from_args(args)
     unported(cfg)
+    world = process_info()[1]
+    if world == 1 and (cfg.num_devices or 1) > 1:
+        return _spawn(argv, cfg.num_devices, args.device)
+    if cfg.num_devices is not None and cfg.num_devices != world:
+        raise ValueError(f"--num-devices {cfg.num_devices} under a launcher's "
+                         f"{world}-rank group: leave it out or give {world}")
     if not cfg.label_csv:
         # bundled public vocabularies (the reference ships the same CSVs
         # in-repo at egs/*/class_labels_indices.csv)

@@ -20,6 +20,7 @@ from typing import Optional
 
 from psla_tpu_torch.frontend.fbank import FbankConfig
 from psla_tpu_torch.frontend.pipeline import PreprocessConfig
+from psla_tpu_torch.parallel.distributed import process_info
 
 
 @dataclasses.dataclass
@@ -87,7 +88,9 @@ class ExperimentConfig:
     # kept for the JAX package's config.json; the kernel's spectrum is
     # float64 whatever it says (frontend/fbank.py)
     fbank_precision: str = "high"
-    # parallelism: more than one card is ROADMAP Queue 1 item 6
+    # data parallelism: the ranks of the process group, one card each
+    # (default: the group's world size; cli.run spawns N ranks on this host
+    # when no launcher started the group)
     num_devices: Optional[int] = None
     # multi-seed ensemble training (train/ensemble_loop.EnsembleTrainer) when > 1
     ensemble_seeds: int = 1
@@ -139,8 +142,10 @@ class ExperimentConfig:
 def unported(cfg: ExperimentConfig):
     """Raise for a setting whose code the port does not have yet, naming
     its ROADMAP item."""
+    ranks = max(cfg.num_devices or 1, process_info()[1])
     later = (
-        ((cfg.num_devices or 1) > 1, "--num-devices over 1", "item 6 (data parallelism)"),
+        (cfg.ensemble_seeds > 1 and ranks > 1, "--ensemble-seeds over 1 on several ranks",
+         "item 6b (ensembles across cards)"),
         (cfg.act_compress != "none", "--act_compress", "item 9 (int8 activation compression)"),
         (cfg.dtype == "bfloat16", "--dtype bfloat16", "item 10 (bfloat16 training)"),
     )

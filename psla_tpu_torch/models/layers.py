@@ -17,6 +17,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -138,6 +139,12 @@ class BatchNorm(nn.Module):
     input's (flax's ``BatchNorm(dtype=jnp.float32)``, as the JAX ResNet50
     and MobileNetV2 build it). EfficientNet's BatchNorm rounds to the
     input's dtype (``dtype=self.dtype`` there).
+
+    ``group``: a process group of several ranks, each holding an equal
+    share of the batch (``train.state.replicate_state`` sets it for a
+    data-parallel step). Train mode then takes the statistics of the
+    global batch (``SyncBatchNormFn``), as GSPMD does for the JAX package's
+    sharded batch. None is the one-process layer.
     """
 
     def __init__(self, num_features: int, eps: float = BN_EPS,
@@ -147,6 +154,7 @@ class BatchNorm(nn.Module):
         self.momentum = momentum  # create_model(bn_momentum=...) sets EfficientNet's
         self.float_out = float_out
         self.replaying = False
+        self.group = None
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -158,8 +166,18 @@ class BatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
             if self.replaying:
                 mean, var = mean.clone(), var.clone()
-            y = F.batch_norm(x, mean, var, self.weight, self.bias, True,
-                             self.momentum, self.eps)
+            if self.group is None:
+                y = F.batch_norm(x, mean, var, self.weight, self.bias, True,
+                                 self.momentum, self.eps)
+            else:
+                y, batch_mean, batch_var = SyncBatchNormFn.apply(
+                    x, self.weight, self.bias, self.eps, self.group)
+                # F.batch_norm's rule, over the global count n
+                n = x.numel() // x.shape[1] * dist.get_world_size(self.group)
+                with torch.no_grad():
+                    m = self.momentum
+                    mean.mul_(1.0 - m).add_(batch_mean, alpha=m)
+                    var.mul_(1.0 - m).add_(batch_var * (n / (n - 1)), alpha=m)
             return y.to(self.weight.dtype) if self.float_out else y
         mul = self.weight * torch.rsqrt(self.running_var + self.eps)
         if x.dtype == mul.dtype:
@@ -168,6 +186,76 @@ class BatchNorm(nn.Module):
         y = (x.to(mul.dtype) - self.running_mean[:, None, None]) * mul[:, None, None]
         y = y + self.bias[:, None, None]
         return y if self.float_out else y.to(x.dtype)
+
+
+def _gather_rows(t: torch.Tensor, group) -> torch.Tensor:
+    """[world, *t.shape]: every rank's ``t`` in rank order, by one sum
+    all-reduce of zero-padded rows (exact: each element is one rank's value
+    plus zeros), which NCCL and gloo take for tensors on the card and on
+    the CPU alike."""
+    out = t.new_zeros((dist.get_world_size(group), *t.shape))
+    out[dist.get_rank(group)] = t
+    dist.all_reduce(out, group=group)
+    return out
+
+
+class SyncBatchNormFn(torch.autograd.Function):
+    """Train-mode batch normalization over a batch split evenly over the
+    ranks of ``group``: the statistics, and the gradient through them, of
+    the global batch, as one process computes them on the whole batch (up
+    to the order of the sums).
+
+    Forward: each rank's per-channel mean and biased variance, gathered
+    (one collective), combined as equal-count groups (Chan's rule: the
+    variance is the mean of the ranks' variances plus the variance of their
+    means, which keeps the precision of a mean-first variance). Returns
+    (y, mean, biased variance); the caller folds the unbiased variance,
+    x n/(n-1) over the global count n, into its running statistics.
+
+    Backward: one all-reduce of sum(dy) and sum(dy * x_hat), so that
+    dx = w * invstd / n * (n * dy - sum(dy) - x_hat * sum(dy * x_hat)) is
+    the gradient of every rank's loss through the global statistics; the
+    weight's and bias's gradients stay this rank's sums, which the step
+    averages over the ranks with the other gradients.
+    ``torch.nn.SyncBatchNorm`` runs only on the card (its statistics
+    kernels are CUDA's), so the port keeps its own.
+    """
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, group):
+        world = dist.get_world_size(group)
+        var_l, mean_l = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+        means, variances = _gather_rows(torch.stack([mean_l, var_l]), group).unbind(1)
+        mean = means.mean(0)
+        var = (variances + (means - mean) ** 2).mean(0)
+        invstd = torch.rsqrt(var + eps)
+        y = ((x - mean[:, None, None]) * (invstd * weight)[:, None, None]
+             + bias[:, None, None])
+        ctx.save_for_backward(x, weight, mean, invstd)
+        ctx.group, ctx.n = group, x.numel() // x.shape[1] * world
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _mean, _var):
+        x, weight, mean, invstd = ctx.saved_tensors
+        x_hat = (x - mean[:, None, None]) * invstd[:, None, None]
+        sum_dy = dy.sum((0, 2, 3))
+        sum_dy_xhat = (dy * x_hat).sum((0, 2, 3))
+        sums = torch.stack([sum_dy, sum_dy_xhat])
+        dist.all_reduce(sums, group=ctx.group)
+        n = ctx.n
+        dx = (weight * invstd / n)[:, None, None] * (
+            n * dy - sums[0][:, None, None] - x_hat * sums[1][:, None, None])
+        return dx, sum_dy_xhat, sum_dy, None, None
+
+
+def set_batchnorm_group(model: nn.Module, group):
+    """Point every ``BatchNorm`` of ``model`` at ``group`` (None: one
+    process)."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.group = group
 
 
 def drop_connect(x: torch.Tensor, keep: torch.Tensor, rate: float) -> torch.Tensor:

@@ -15,9 +15,8 @@ The JAX package stacks the members along a leading axis sharded over an
 ``shard_map`` (a ``vmap`` over the stacked kernels lowers to grouped
 convolutions that XLA partitioned wrongly). On one card the port is that
 unrolled loop: a member is an ordinary ``TrainState`` whose step is the
-single-model step. ``ensemble_layout`` is kept for data parallelism
-across cards (ROADMAP.md, Queue 1, item 6), which places the members
-on ranks.
+single-model step. ``ensemble_layout`` is kept for ensembles across
+ranks (ROADMAP.md, Queue 1, item 6b), which place the members on ranks.
 """
 
 from __future__ import annotations
@@ -31,7 +30,7 @@ import torch
 from psla_tpu_torch.frontend.pipeline import PreprocessConfig, preprocess_eval
 from psla_tpu_torch.train.optim import per_sample_loss
 from psla_tpu_torch.train.state import TrainState, create_train_state
-from psla_tpu_torch.train.step import TrainDraws, _wav_batch, make_train_step_fn
+from psla_tpu_torch.train.step import TrainDraws, _wav_batch, build_train_step
 
 
 def ensemble_layout(num_seeds: int, n_devices: int, host_id: int = 0,
@@ -93,12 +92,12 @@ def make_ensemble_train_step(pre_config: PreprocessConfig, loss_type: str = "BCE
                              ) -> Callable[[EnsembleState, Mapping, Sequence[TrainDraws]],
                                            tuple[EnsembleState, dict]]:
     """Returns step(state, batch, draws) -> (state, {"loss", "seed_loss"}):
-    every member's single-model train step (``make_train_step_fn``) on the
+    every member's single-model train step (``build_train_step``) on the
     shared batch with its own draws ``draws[m]``, in member order. The batch
     crosses to the card once. ``loss`` is the mean over the seeds (a 0-d
     tensor on the card: a diverged member makes it NaN), ``seed_loss`` the
     members' losses [E]. No host sync."""
-    core = make_train_step_fn(pre_config, loss_type)
+    core = build_train_step(pre_config, loss_type)
 
     def step(state: EnsembleState, batch: Mapping, draws: Sequence[TrainDraws]):
         if len(draws) != len(state.members):

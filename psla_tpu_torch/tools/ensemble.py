@@ -20,7 +20,7 @@ back to back (the eval half of ``psla_tpu/parallel/ensemble.py``,
 ``build_ensemble_eval_step``). ``--sequential`` runs E full passes, one
 member on the card at a time, as the reference does. Members whose
 state_dict keys or shapes differ are evaluated sequentially. Several cards
-(``--num-devices``) wait for ROADMAP.md, Queue 1, item 6.
+(``--num-devices``) wait for ROADMAP.md, Queue 1, item 6b.
 """
 
 from __future__ import annotations
@@ -43,7 +43,7 @@ from psla_tpu_torch.metrics import calculate_stats, d_prime
 from psla_tpu_torch.models import create_model
 from psla_tpu_torch.models.convert import load_variables
 from psla_tpu_torch.train.state import create_train_state, place_model
-from psla_tpu_torch.train.step import _wav_batch, make_eval_step_fn
+from psla_tpu_torch.train.step import _wav_batch, build_eval_step
 
 # batches whose copy to the card runs ahead of the forward (the trainer's
 # default, data/device_prefetch.py)
@@ -95,7 +95,7 @@ def predict(model: torch.nn.Module, loader: AudioLoader, pre_config: PreprocessC
     dropped."""
     # the eval step reads the state's model and device only
     state = create_train_state(model, lambda step: 0.0, device=device)
-    eval_step = make_eval_step_fn(pre_config)
+    eval_step = build_eval_step(pre_config)
     preds, targets = [], []
     with _batches(loader, state.device) as batches:
         for host_batch, batch in batches:

@@ -12,6 +12,9 @@ longer than the model window:
 Repeating ``--ckpt`` serves a model ENSEMBLE: the members share one fbank
 per micro-batch and the response is the mean of their probabilities (the
 reference's ensemble protocol, src/ensemble/ensemble.py:52-68).
+``--num-devices N`` replicates the members on ``cuda:0..N-1`` and splits
+each micro-batch into N contiguous shards, one a card (the JAX package's
+micro-batch sharded over a ('data',) mesh).
 
 API:
   * ``GET  /healthz``  -> {"status": "ok", model info}
@@ -36,6 +39,7 @@ import json
 import queue
 import threading
 import time
+from contextlib import nullcontext
 
 import numpy as np
 import torch
@@ -66,25 +70,48 @@ class _Request:
         self.error: Exception | None = None
 
 
+def replica_devices(num_devices: int | None, device: str | torch.device,
+                    batch_size: int) -> list[torch.device]:
+    """The devices of ``num_devices`` replicas: ``cuda:0..N-1`` on the card
+    (``ValueError`` past the visible cards), N times the CPU for 'cpu'; one
+    replica on ``device`` without N. ``batch_size`` must split evenly."""
+    device = torch.device(device)
+    if not num_devices or num_devices == 1:
+        return [device]
+    if batch_size % num_devices:
+        raise ValueError(
+            f"batch_size {batch_size} is not divisible by num_devices {num_devices}")
+    if device.type == "cpu":
+        return [device] * num_devices
+    visible = torch.cuda.device_count()
+    if num_devices > visible:
+        raise ValueError(f"requested num_devices={num_devices} but only {visible} "
+                         f"devices are visible")
+    return [torch.device("cuda", i) for i in range(num_devices)]
+
+
 class InferenceEngine:
-    """Model members on one device + the micro-batching queue that HTTP
-    workers share.
+    """Model members on one device, or replicated on several, + the
+    micro-batching queue that HTTP workers share.
 
     ``model`` is an ``nn.Module`` with its weights, or a list of them (an
-    ensemble). The engine keeps its own copies on ``device`` in eval mode.
-    In float32 it switches TF32 off for cuDNN and cuBLAS (process-wide, as
-    ``train.state.create_train_state`` does), so the served probabilities
-    match an offline float32 forward.
+    ensemble). The engine keeps its own copies in eval mode on ``device``,
+    or on each of ``replica_devices(num_devices, device, batch_size)``.
+    With several replicas a micro-batch is split into contiguous shards, one
+    a replica. In float32 on the card it switches TF32 off for cuDNN and
+    cuBLAS (process-wide, as ``train.state.create_train_state`` does), so
+    the served probabilities match an offline float32 forward.
     """
 
     def __init__(self, model, config, names: dict, batch_size: int = 16,
                  batch_window_ms: float = 5.0,
-                 device: str | torch.device = "cuda"):
-        self.device = torch.device(device)
+                 device: str | torch.device = "cuda", num_devices: int | None = None):
+        self.devices = replica_devices(num_devices, device, batch_size)
+        self.device = self.devices[0]
         models = model if isinstance(model, (list, tuple)) else [model]
-        self.members = tuple(
-            copy.deepcopy(m).to(self.device).eval() for m in models
-        )
+        self.replicas = [
+            tuple(copy.deepcopy(m).to(d).eval() for m in models) for d in self.devices]
+        self.members = self.replicas[0]
         if self.device.type == "cuda" and self.members[0].dtype == torch.float32:
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
@@ -114,13 +141,30 @@ class InferenceEngine:
     def batch_probs(self, wav: np.ndarray, wav_mean: np.ndarray,
                     lengths: np.ndarray) -> np.ndarray:
         """One dispatch: [b, chunk_samples] clips -> [b, n_class] mean of
-        the members' probabilities. The fbank runs once for all members."""
-        to = dict(device=self.device, non_blocking=True)
-        return ensemble_probs(
-            self.members, torch.from_numpy(wav).to(**to),
-            torch.from_numpy(wav_mean).to(**to), torch.from_numpy(lengths).to(**to),
-            self.config,
-        ).cpu().numpy()
+        the members' probabilities. The fbank runs once for all members of
+        a replica. With several replicas each takes a contiguous shard of
+        the rows, and the results come back in row order."""
+        return np.concatenate([o.cpu().numpy() for o in self.issue(wav, wav_mean, lengths)])
+
+    def issue(self, wav: np.ndarray, wav_mean: np.ndarray,
+              lengths: np.ndarray) -> list[torch.Tensor]:
+        """The work of a dispatch queued on the devices, fetching nothing:
+        each replica's shard's copy, fbank and forwards on its own device,
+        one after another from this thread. Returns each replica's
+        probabilities, on its device, in row order."""
+        shards = np.array_split(np.arange(len(wav)), len(self.replicas))
+        outs = []
+        for members, device, rows in zip(self.replicas, self.devices, shards):
+            if len(rows) == 0:
+                continue
+            lo, hi = rows[0], rows[-1] + 1
+            to = dict(device=device, non_blocking=True)
+            with torch.cuda.device(device) if device.type == "cuda" else nullcontext():
+                outs.append(ensemble_probs(
+                    members, torch.from_numpy(wav[lo:hi]).to(**to),
+                    torch.from_numpy(wav_mean[lo:hi]).to(**to),
+                    torch.from_numpy(lengths[lo:hi]).to(**to), self.config))
+        return outs
 
     def _count(self, key: str, n: int = 1):
         with self._counter_lock:
@@ -350,6 +394,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch-window-ms", type=float, default=5.0)
     p.add_argument("--device", default="cuda",
                    help="torch device to serve on (cuda, cuda:1, cpu)")
+    p.add_argument("--num-devices", type=int, default=None,
+                   help="replicate the members on cuda:0..N-1 and split each "
+                        "micro-batch into N shards, one a card; default: one device")
     p.add_argument("--dtype", default="bfloat16",
                    choices=["float32", "bfloat16"],
                    help="compute dtype of the forward (weights stay float32; "
@@ -383,6 +430,7 @@ def engine_from_args(args) -> InferenceEngine:
     return InferenceEngine(
         members, config, names, batch_size=args.batch_size,
         batch_window_ms=args.batch_window_ms, device=args.device,
+        num_devices=args.num_devices,
     )
 
 
@@ -391,7 +439,7 @@ def main(argv=None) -> int:
     engine = engine_from_args(args)
     server = make_server(engine, port=args.port, host=args.host)
     print(f"serving on http://{args.host}:{server.server_address[1]} "
-          f"({engine.device}, batch_size={engine.batch_size}, "
+          f"({', '.join(map(str, engine.devices))}, batch_size={engine.batch_size}, "
           f"window={args.batch_window_ms}ms)", flush=True)
     try:
         server.serve_forever()

@@ -30,7 +30,7 @@ and to the seed mean:
     stay per-seed fresh, as in the reference protocol, where each member is
     a job with its own init.
 
-Left out until data parallelism (ROADMAP.md, Queue 1, item 6): the JAX
+Left out until ensembles across ranks (ROADMAP.md, Queue 1, item 6b): the JAX
 trainer's multi-host pieces (its loader-shard check, the CLI's loader remap
 by ``ensemble_layout``, the gather of members sharded across hosts). Here
 every member is on the one card.

@@ -1,6 +1,5 @@
 """Training and validation engine: the reference's train-loop protocol on
-one card (port of ``psla_tpu/train/loop.py`` without its mesh and its
-multi-host calls).
+one card or on several ranks (port of ``psla_tpu/train/loop.py``).
 
 It does what src/traintest.py does: per-epoch train and validate, a running
 checkpoint ensemble of prediction CSVs, 10-column result.csv rows, best and
@@ -17,6 +16,13 @@ Artifacts under exp_dir, as the JAX package lays them out:
   ensemble_predictions.csv}, models/{epoch_N, best, wa}/checkpoint.pth
   (``torch.save`` of {"step", "model": the state_dict in the reference key
   layout, "optimizer": Adam's state_dict}).
+
+Several ranks (``torch.distributed``, ``parallel/``): each rank's loader
+holds its share of the global batch, the train step synchronizes BatchNorm
+and averages the gradients, validation gathers every rank's rows in the
+dataset's order, and only rank 0 writes files (CSVs, checkpoints,
+tensorboard, the profile, weight averaging's deletes), each write followed
+by a barrier where another rank reads it next.
 
 Deliberate deviation kept from the JAX package: weight averaging divides
 by the true checkpoint count (the reference's validate_wa divides by N+1,
@@ -46,14 +52,21 @@ from psla_tpu_torch.models.pretrained import (
     convert_imagenet_state_dict,
     resolve_imagenet_checkpoint,
 )
+from psla_tpu_torch.parallel.distributed import (
+    allgather_host,
+    barrier,
+    broadcast_floats,
+    is_primary,
+)
+from psla_tpu_torch.parallel.mesh import make_mesh
 from psla_tpu_torch.train.meters import AverageMeter
 from psla_tpu_torch.train.optim import psla_lr_schedule
-from psla_tpu_torch.train.state import TrainState, create_train_state
+from psla_tpu_torch.train.state import TrainState, create_train_state, replicate_state
 from psla_tpu_torch.train.step import (
     TrainDraws,
+    build_eval_step,
+    build_train_step,
     draw_train,
-    make_eval_step_fn,
-    make_train_step_fn,
     step_generator,
 )
 
@@ -68,7 +81,10 @@ def _fresh_progress() -> dict:
 
 class Trainer:
     """The PSLA trainer on ``device`` ('cuda' unless the caller asks for
-    'cpu'). The loaders are ``data.loader.AudioLoader``s."""
+    'cpu'). The loaders are ``data.loader.AudioLoader``s, each this rank's
+    shard when the process group has several ranks (``cli.make_loaders``);
+    the mesh spans every rank of the group (``parallel.mesh.make_mesh``,
+    ``config.num_devices`` ranks)."""
 
     def __init__(
         self,
@@ -84,11 +100,14 @@ class Trainer:
         self.val_loader = val_loader
         self.eval_loader = eval_loader
         self.device = torch.device(device)
+        self.mesh = make_mesh(config.num_devices, self.device)
 
         self.exp_dir = os.path.abspath(config.exp_dir)
-        os.makedirs(os.path.join(self.exp_dir, "models"), exist_ok=True)
-        os.makedirs(os.path.join(self.exp_dir, "predictions"), exist_ok=True)
-        config.save(os.path.join(self.exp_dir, "config.json"))
+        if is_primary():
+            os.makedirs(os.path.join(self.exp_dir, "models"), exist_ok=True)
+            os.makedirs(os.path.join(self.exp_dir, "predictions"), exist_ok=True)
+            config.save(os.path.join(self.exp_dir, "config.json"))
+        barrier("trainer_init")
 
         self.pre_config = config.preprocess_config()
         self.steps_per_epoch = max(1, train_loader.batches_per_epoch())
@@ -118,15 +137,16 @@ class Trainer:
 
     def _build_steps(self):
         """The train and eval steps (the ensemble trainer builds its own)."""
-        self.train_step = make_train_step_fn(self.pre_config, self.config.loss)
-        self.eval_step = make_eval_step_fn(self.pre_config, self.config.loss)
+        self.train_step = build_train_step(self.pre_config, self.config.loss, self.mesh)
+        self.eval_step = build_eval_step(self.pre_config, self.config.loss)
 
     # ------------------------------------------------------ tensorboard
 
     def _tb_writer(self):
-        """Lazy SummaryWriter into {exp_dir}/tb (config.tensorboard).
-        Returns None when disabled or unavailable."""
-        if not self.config.tensorboard:
+        """Lazy SummaryWriter into {exp_dir}/tb (config.tensorboard), on
+        rank 0. Returns None when disabled or unavailable, and on the other
+        ranks."""
+        if not self.config.tensorboard or not is_primary():
             return None
         if self._tb is None:
             try:
@@ -193,7 +213,8 @@ class Trainer:
         sd = self._pretrained()
         if sd is not None:
             model.load_state_dict(self._convert_pretrained(sd, model.state_dict()))
-        return create_train_state(model, self.schedule, step=0, device=self.device)
+        state = create_train_state(model, self.schedule, step=0, device=self.device)
+        return replicate_state(state, self.mesh)
 
     @staticmethod
     def _models(state: TrainState) -> list[torch.nn.Module]:
@@ -201,8 +222,10 @@ class Trainer:
         return [state.model]
 
     def draws(self, step: int, batch_size: int) -> TrainDraws:
-        """Global step ``step``'s random draws, from its own generator
-        (``step_generator``, seeded from the config's seed and ``step``)."""
+        """Global step ``step``'s random draws for ``batch_size`` clips (the
+        global batch: every rank draws all of them and its step keeps its
+        rows), from its own generator (``step_generator``, seeded from the
+        config's seed and ``step``)."""
         gen = step_generator(self.config.seed, step, self.device)
         return draw_train(gen, self.model, batch_size, self.pre_config)
 
@@ -225,7 +248,10 @@ class Trainer:
         os.replace(tmp, os.path.join(path, CHECKPOINT_FILE))
 
     def save_checkpoint(self, state: TrainState, tag):
-        self._write_checkpoint(self._checkpoint(state), tag)
+        """Rank 0 writes; every rank waits until the file is there."""
+        if is_primary():
+            self._write_checkpoint(self._checkpoint(state), tag)
+        barrier(f"checkpoint_{tag}")
 
     def _load(self, tag) -> dict:
         return torch.load(os.path.join(self._ckpt_dir(tag), CHECKPOINT_FILE),
@@ -240,7 +266,7 @@ class Trainer:
                                    device=self.device)
         if "optimizer" in ckpt:
             state.optimizer.load_state_dict(ckpt["optimizer"])
-        return state
+        return replicate_state(state, self.mesh)
 
     def restore_checkpoint(self, tag) -> TrainState:
         return self._state_from(self._load(tag))
@@ -250,9 +276,9 @@ class Trainer:
     def _profile_tick(self, gstep: int):
         """Start and stop a torch.profiler trace around the configured steps
         (config.profile_steps / profile_start_step), written as a Chrome
-        trace into {exp_dir}/profile."""
+        trace into {exp_dir}/profile: rank 0's."""
         cfg = self.config
-        if not cfg.profile_steps:
+        if not cfg.profile_steps or not is_primary():
             return
         if self._profiler is None and gstep == cfg.profile_start_step:
             activities = [torch.profiler.ProfilerActivity.CPU]
@@ -287,8 +313,9 @@ class Trainer:
         return _fresh_progress()
 
     def _save_progress(self, progress):
-        with open(self._progress_path(), "w") as f:
-            json.dump(progress, f, indent=1)
+        if is_primary():
+            with open(self._progress_path(), "w") as f:
+                json.dump(progress, f, indent=1)
 
     # ------------------------------------------------------------ training
 
@@ -346,7 +373,9 @@ class Trainer:
             # fetched once an epoch, and the divergence flag ORs isnan(loss)
             # on the card, read at print steps (the reference's
             # loss_meter.avg-is-nan window, traintest.py:125-131): a NaN at
-            # any step aborts at the end of its print window.
+            # any step aborts at the end of its print window. On several
+            # ranks the loss is the mean over the ranks, so the flag is the
+            # OR over the ranks too, and every rank aborts at the same step.
             gstep = progress["global_step"]
             epoch_losses = []
             diverged = torch.zeros((), dtype=torch.bool, device=self.device)
@@ -360,8 +389,8 @@ class Trainer:
                     data_t = time.time() - end_time
                     dnn_start = time.time()
                     self._profile_tick(gstep)
-                    state, metrics = self.train_step(
-                        state, batch, self.draws(state.step, len(host_batch["wav"])))
+                    state, metrics = self.train_step(state, batch, self.draws(
+                        state.step, len(host_batch["wav"]) * self.mesh.world))
                     epoch_losses.append(metrics["loss"])
                     diverged.logical_or_(torch.isnan(metrics["loss"]))
                     gstep += 1
@@ -405,14 +434,20 @@ class Trainer:
 
             # ---------------- validation + artifacts (traintest.py:136-200)
             stats, valid_loss = self.validate(state, self.val_loader, epoch)
-            ensemble_stats = self.validate_ensemble(epoch)
 
             mAP = float(np.mean([s["AP"] for s in stats]))
             mAUC = float(np.nanmean([s["auc"] for s in stats]))
             acc = stats[0]["acc"]
-            ens_mAP = float(np.mean([s["AP"] for s in ensemble_stats]))
-            ens_mAUC = float(np.nanmean([s["auc"] for s in ensemble_stats]))
-            ens_acc = ensemble_stats[0]["acc"]
+            # the running ensemble reads the CSVs, which rank 0 writes: it
+            # scores them, and every rank takes its numbers
+            ens_mAP = ens_mAUC = ens_acc = 0.0
+            if is_primary():
+                ensemble_stats = self.validate_ensemble(epoch)
+                ens_mAP = float(np.mean([s["AP"] for s in ensemble_stats]))
+                ens_mAUC = float(np.nanmean([s["auc"] for s in ensemble_stats]))
+                ens_acc = ensemble_stats[0]["acc"]
+            ens_mAP, ens_mAUC, ens_acc = (
+                float(v) for v in broadcast_floats([ens_mAP, ens_mAUC, ens_acc]))
             mid_p = float(np.mean([s["precisions"][len(s["precisions"]) // 2] for s in stats]))
             mid_r = float(np.mean([s["recalls"][len(s["recalls"]) // 2] for s in stats]))
             cur_lr = float(self.schedule(state.step))
@@ -429,7 +464,8 @@ class Trainer:
                 main, mAUC, mid_p, mid_r, d_prime(mAUC), meters["loss"].avg,
                 valid_loss, ens_main, ens_mAUC, cur_lr,
             ]
-            np.savetxt(result_path, result_rows, delimiter=",")
+            if is_primary():
+                np.savetxt(result_path, result_rows, delimiter=",")
             self._tb_epoch(epoch, {
                 "loss/train": meters["loss"].avg,
                 "loss/valid": valid_loss,
@@ -454,8 +490,9 @@ class Trainer:
                 self.save_checkpoint(state, "best")
             self.save_checkpoint(state, f"epoch_{epoch}")
 
-            with open(os.path.join(self.exp_dir, f"stats_{epoch}.pickle"), "wb") as f:
-                pickle.dump(stats, f, protocol=pickle.HIGHEST_PROTOCOL)
+            if is_primary():
+                with open(os.path.join(self.exp_dir, f"stats_{epoch}.pickle"), "wb") as f:
+                    pickle.dump(stats, f, protocol=pickle.HIGHEST_PROTOCOL)
 
             progress["epoch"] = epoch
             progress["global_step"] = state.step
@@ -477,27 +514,55 @@ class Trainer:
         """No-grad eval pass; writes prediction CSVs (traintest.py:232-276).
         The padded tail rows of the last batch (past ``n_valid``) are
         dropped. The loss is the mean of per-sample losses (the reference
-        averages per-batch means; identical for equal batch sizes)."""
-        preds, targets, losses = [], [], []
+        averages per-batch means; identical for equal batch sizes). On
+        several ranks each evaluates its own shard, every rank gets all rows
+        in the dataset's order (``_gathered_rows``) and rank 0 writes."""
+        preds, targets, losses, valid = [], [], [], []
         with contextlib.closing(prefetch_to_device(
                 iter(loader), self.device, depth=self.config.device_prefetch)) as batches:
             for host_batch, batch in batches:
                 out, per_sample = self.eval_step(state, batch)
                 n_valid = int(host_batch["n_valid"])
-                preds.append(out[:n_valid])
-                targets.append(host_batch["labels"][:n_valid])
-                losses.append(per_sample[:n_valid])
-        output = torch.cat(preds).cpu().numpy()  # one fetch a pass
-        target = np.concatenate(targets)
-        loss = float(np.mean(torch.cat(losses).cpu().numpy()))
+                if self.mesh.world == 1:
+                    preds.append(out[:n_valid])
+                    targets.append(host_batch["labels"][:n_valid])
+                    losses.append(per_sample[:n_valid])
+                else:
+                    preds.append(out)
+                    targets.append(host_batch["labels"])
+                    losses.append(per_sample)
+                    valid.append(np.arange(len(out)) < n_valid)
+        if self.mesh.world == 1:
+            output = torch.cat(preds).cpu().numpy()  # one fetch a pass
+            target = np.concatenate(targets)
+            loss_rows = torch.cat(losses).cpu().numpy()
+        else:
+            keep = self._gathered_rows(np.concatenate(valid))
+            output, target, loss_rows = (
+                self._gathered_rows(rows)[keep]
+                for rows in (torch.cat(preds), np.concatenate(targets), torch.cat(losses)))
+        loss = float(np.mean(loss_rows))
         stats = calculate_stats(output, target)
 
-        pred_dir = os.path.join(self.exp_dir, "predictions")
-        self._write_target_csv(pred_dir, "target.csv", target)
-        np.savetxt(os.path.join(pred_dir, f"predictions_{epoch}.csv"), output, delimiter=",")
-        if eval_target:
-            self._write_target_csv(pred_dir, "eval_target.csv", target)
+        if is_primary():
+            pred_dir = os.path.join(self.exp_dir, "predictions")
+            self._write_target_csv(pred_dir, "target.csv", target)
+            np.savetxt(os.path.join(pred_dir, f"predictions_{epoch}.csv"), output,
+                       delimiter=",")
+            if eval_target:
+                self._write_target_csv(pred_dir, "eval_target.csv", target)
+        barrier(f"validate_{epoch}")  # the protocol reads the CSVs next
         return stats, loss
+
+    def _gathered_rows(self, rows) -> np.ndarray:
+        """Every rank's eval rows (this rank's, in loader order) in the
+        dataset's order. A sequential loader shard is strided
+        (``data/loader.py``): rank r's p-th row is the dataset's row
+        W * p + r, so the gathered [W, P] rows come in order with the rank
+        axis moved last. The padded rows' mask takes the same gather."""
+        gathered = allgather_host(rows)
+        gathered = gathered.reshape(self.mesh.world, -1, *gathered.shape[1:])
+        return gathered.swapaxes(0, 1).reshape(-1, *gathered.shape[2:])
 
     def _write_target_csv(self, pred_dir: str, name: str, target):
         """Write a target matrix once per trainer: the FIRST write
@@ -575,8 +640,11 @@ class Trainer:
             count += 1
             if not self.config.save_model:
                 to_delete.append(self._ckpt_dir(tag))
-        for path in to_delete:
-            shutil.rmtree(path)
+        # every rank has read the checkpoints before rank 0 deletes them
+        barrier("wa_delete")
+        if is_primary():
+            for path in to_delete:
+                shutil.rmtree(path)
         if count == 0:
             raise FileNotFoundError(f"no checkpoints in epochs [{start_epoch}, {end_epoch}]")
         state = self._state_from({"step": 0, "model": {
@@ -585,6 +653,8 @@ class Trainer:
         stats, _ = self.validate(state, self.val_loader, "wa")
         mAP = float(np.mean([s["AP"] for s in stats]))
         mAUC = float(np.nanmean([s["auc"] for s in stats]))
-        np.savetxt(os.path.join(self.exp_dir, "wa_result.csv"), [mAP, mAUC])
+        if is_primary():
+            np.savetxt(os.path.join(self.exp_dir, "wa_result.csv"), [mAP, mAUC])
+        barrier("wa_result")
         print(f"weight-averaged model ({count} ckpts): mAP {mAP:.6f} AUC {mAUC:.6f}")
         return state

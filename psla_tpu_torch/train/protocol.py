@@ -19,6 +19,7 @@ import os
 import numpy as np
 
 from psla_tpu_torch.metrics import calculate_stats
+from psla_tpu_torch.parallel.distributed import is_primary
 
 
 def _mean_ap_auc(stats):
@@ -26,6 +27,12 @@ def _mean_ap_auc(stats):
         float(np.mean([s["AP"] for s in stats])),
         float(np.nanmean([s["auc"] for s in stats])),
     )
+
+
+def _save(path: str, values):
+    """Rank 0 writes a summary CSV (every rank computes the same values)."""
+    if is_primary():
+        np.savetxt(path, values)
 
 
 def post_training_summary(trainer, eval_loader=None) -> dict:
@@ -45,7 +52,7 @@ def post_training_summary(trainer, eval_loader=None) -> dict:
             state, eval_loader, "best_single_eval_set", eval_target=True
         )
         eval_map, eval_auc = _mean_ap_auc(stats)
-        np.savetxt(
+        _save(
             os.path.join(exp_dir, "best_single_result.csv"),
             [val_map, val_auc, eval_map, eval_auc],
         )
@@ -61,7 +68,7 @@ def post_training_summary(trainer, eval_loader=None) -> dict:
             val_map, val_auc = _mean_ap_auc(stats)
             stats, _ = trainer.validate(state, eval_loader, "wa_eval_set")
             eval_map, eval_auc = _mean_ap_auc(stats)
-            np.savetxt(
+            _save(
                 os.path.join(exp_dir, "wa_result.csv"),
                 [val_map, val_auc, eval_map, eval_auc],
             )
@@ -102,7 +109,7 @@ def post_training_summary(trainer, eval_loader=None) -> dict:
             ensemble_pred = ensemble_pred / count
             stats = calculate_stats(ensemble_pred, target)
             eval_map, eval_auc = _mean_ap_auc(stats)
-            np.savetxt(
+            _save(
                 os.path.join(exp_dir, "ensemble_result.csv"),
                 [val_map, val_auc, eval_map, eval_auc],
             )
@@ -117,7 +124,7 @@ def post_training_summary(trainer, eval_loader=None) -> dict:
         )
         last5 = result[-5:].mean(axis=0)
         summary["best_single"] = dict(eval_mAP=float(last5[0]), eval_mAUC=float(last5[1]))
-        np.savetxt(
+        _save(
             os.path.join(exp_dir, "best_single_result.csv"), [last5[0], last5[1]]
         )
         print(f"last-5-epoch mean: mAP {last5[0]:.6f} AUC {last5[1]:.6f}")
@@ -130,6 +137,6 @@ def post_training_summary(trainer, eval_loader=None) -> dict:
 
         ens_map, ens_auc = float(result[-1, -3]), float(result[-1, -2])
         summary["ensemble"] = dict(eval_mAP=ens_map, eval_mAUC=ens_auc)
-        np.savetxt(os.path.join(exp_dir, "ensemble_result.csv"), [ens_map, ens_auc])
+        _save(os.path.join(exp_dir, "ensemble_result.csv"), [ens_map, ens_auc])
         print(f"ensemble: mAP {ens_map:.6f} AUC {ens_auc:.6f}")
     return summary

@@ -12,6 +12,9 @@ from typing import Callable
 
 import torch
 
+from psla_tpu_torch.models.layers import set_batchnorm_group
+from psla_tpu_torch.parallel.distributed import broadcast_tensors
+from psla_tpu_torch.parallel.mesh import Mesh
 from psla_tpu_torch.train.optim import make_optimizer
 
 
@@ -54,3 +57,18 @@ def create_train_state(model: torch.nn.Module, schedule: Callable[[int], float],
     return TrainState(step=step, model=model,
                       optimizer=make_optimizer(model.parameters()),
                       schedule=schedule)
+
+
+def replicate_state(state: TrainState, mesh: Mesh) -> TrainState:
+    """The state placed on ``mesh``, in place: rank 0's model (parameters
+    and BatchNorm statistics) and Adam moments copied into every rank's, as
+    the JAX package places the state replicated (``psla_tpu/train/loop.py``),
+    and the model's BatchNorms synced over the mesh's group (the global
+    batch's statistics in train mode). A no-op at world 1."""
+    if mesh.world > 1:
+        tensors = list(state.model.state_dict().values())
+        for moments in state.optimizer.state.values():
+            tensors.extend(v for v in moments.values() if torch.is_tensor(v))
+        broadcast_tensors(tensors, mesh)
+        set_batchnorm_group(state.model, mesh.group)
+    return state

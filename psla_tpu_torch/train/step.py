@@ -7,8 +7,15 @@ SpecAugment, normalize, the train-mode forward, BCE (or CE) on clamped
 probabilities, backward, and Adam on the PSLA schedule. Its random draws
 come in as tensors (``TrainDraws``, made by ``draw_train`` from a
 ``torch.Generator``), so a step is a function of the state, the batch and
-the draws. The JAX package's mesh and sharding wait for the port's data
-parallelism.
+the draws.
+
+Data parallelism (``build_train_step(..., mesh)``, the JAX package's
+``build_train_step`` on a ('data',) mesh): each rank takes its contiguous
+share of the global batch, draws the global batch's draws and keeps its
+rows, normalizes with the global batch's BatchNorm statistics
+(``models.layers.SyncBatchNormFn``), and averages the gradients and the
+loss over the ranks with one all-reduce before Adam, so W ranks compute the
+one-process step on the global batch up to the order of the sums.
 """
 
 from __future__ import annotations
@@ -17,6 +24,7 @@ from typing import Callable, Mapping, NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from psla_tpu_torch.frontend.pipeline import (
     PreprocessConfig,
@@ -26,6 +34,8 @@ from psla_tpu_torch.frontend.pipeline import (
     preprocess_eval,
     preprocess_train,
 )
+from psla_tpu_torch.models.layers import BatchNorm
+from psla_tpu_torch.parallel.mesh import Mesh
 from psla_tpu_torch.train.optim import bce_loss, ce_loss, per_sample_loss, set_lr
 from psla_tpu_torch.train.state import TrainState
 
@@ -80,36 +90,95 @@ def draw_train(generator: torch.Generator, model: torch.nn.Module, batch: int,
     return TrainDraws(pre, u < keep_prob[:, None])
 
 
-def make_train_step_fn(pre_config: PreprocessConfig, loss_type: str = "BCE"
-                       ) -> Callable[[TrainState, Mapping, TrainDraws],
-                                     tuple[TrainState, dict]]:
+def shard_draws(draws: TrainDraws, mesh: Mesh, rows: int) -> TrainDraws:
+    """This rank's ``rows`` rows of the global batch's draws: rows
+    ``[rank * rows, (rank + 1) * rows)`` of every per-clip draw, and of
+    axis 1 of ``keep``."""
+    lo, hi = mesh.rank * rows, (mesh.rank + 1) * rows
+    per_clip = [t for d in draws.pre if d is not None for t in d]
+    if draws.keep is not None:
+        per_clip.append(draws.keep[0])
+    if per_clip and per_clip[0].shape[0] != rows * mesh.world:
+        raise ValueError(f"the draws are for {per_clip[0].shape[0]} clips; a step of "
+                         f"{mesh.world} ranks x {rows} rows takes the global batch's")
+    pre = PreprocessDraws(*(None if d is None else type(d)(*(t[lo:hi] for t in d))
+                            for d in draws.pre))
+    return TrainDraws(pre, None if draws.keep is None else draws.keep[:, lo:hi])
+
+
+def _average_gradients(params, loss: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Replace every gradient by its mean over the ranks, with one all-reduce
+    of a flat buffer that also carries the loss. Returns the loss's mean
+    over the ranks (a 0-d tensor on the device, no host sync)."""
+    grads = [p.grad for p in params if p.grad is not None]
+    flat = torch.cat([g.reshape(-1) for g in grads] + [loss.reshape(1).to(grads[0].dtype)])
+    dist.all_reduce(flat, group=mesh.group)
+    flat /= mesh.world
+    offset = 0
+    for g in grads:
+        g.copy_(flat[offset:offset + g.numel()].view_as(g))
+        offset += g.numel()
+    return flat[-1].clone()
+
+
+def build_train_step(pre_config: PreprocessConfig, loss_type: str = "BCE",
+                     mesh: Mesh | None = None
+                     ) -> Callable[[TrainState, Mapping, TrainDraws],
+                                   tuple[TrainState, dict]]:
     """Returns train_step(state, batch, draws) -> (state, {"loss"}). The
     step updates the state in place (model, optimizer, step) and returns
-    it; the loss is a 0-d tensor on the state's device."""
+    it; the loss is a 0-d tensor on the state's device. Without a mesh, or
+    at W = 1, it is the one-process step: the single model's, and each
+    ensemble member's.
+
+    With a ``mesh`` of W > 1 ranks, the state is one that
+    ``train.state.replicate_state`` placed on the mesh (its BatchNorms take
+    the global statistics), ``batch`` is this rank's share of the global
+    batch (``parallel.mesh.shard_batch``) and ``draws`` the global batch's
+    (``draw_train`` for W x its rows; the step keeps its own,
+    ``shard_draws``). The gradients and the returned loss are the means
+    over the ranks."""
     loss_fn = bce_loss if loss_type == "BCE" else ce_loss
+    group = mesh.group if mesh is not None and mesh.world > 1 else None
+    placed = []  # the last model seen to be on the mesh's group
 
     def train_step(state: TrainState, batch: Mapping, draws: TrainDraws):
         model, optimizer = state.model, state.optimizer
         model.train()
+        if group is not None:
+            if not placed or placed[0] is not model:
+                if any(bn.group is not group for bn in model.modules()
+                       if isinstance(bn, BatchNorm)):
+                    raise ValueError("the state's BatchNorms are not on the mesh's group: "
+                                     "place the state with replicate_state(state, mesh)")
+                placed[:] = [model]
+            draws = shard_draws(draws, mesh, len(batch["wav"]))
         fbank, labels = preprocess_train(_wav_batch(batch, state.device), draws.pre,
                                          pre_config)
         probs = model(fbank) if draws.keep is None else model(fbank, keep=draws.keep)
         loss = loss_fn(probs, labels)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        loss = loss.detach()
+        if group is not None:
+            loss = _average_gradients(model.parameters(), loss, mesh)
         set_lr(optimizer, state.schedule(state.step))
         optimizer.step()
         state.step += 1
-        return state, {"loss": loss.detach()}
+        return state, {"loss": loss}
 
     return train_step
 
 
-def make_eval_step_fn(pre_config: PreprocessConfig, loss_type: str = "BCE"
-                      ) -> Callable[[TrainState, Mapping],
-                                    tuple[torch.Tensor, torch.Tensor]]:
+def build_eval_step(pre_config: PreprocessConfig, loss_type: str = "BCE"
+                    ) -> Callable[[TrainState, Mapping],
+                                  tuple[torch.Tensor, torch.Tensor]]:
     """Returns eval_step(state, batch) -> (probs [B, C], per-sample loss
-    [B]), the eval forward on the eval variant of ``pre_config``."""
+    [B]), the eval forward on the eval variant of ``pre_config``. On
+    several ranks each runs it on its own rows: eval-mode BatchNorm reads
+    the running statistics, which every rank holds alike, so the step needs
+    no collective; the caller gathers the rows
+    (``train.loop.Trainer.validate``)."""
     eval_config = pre_config.eval_variant()
 
     @torch.inference_mode()

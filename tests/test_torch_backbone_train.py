@@ -61,7 +61,7 @@ from psla_tpu_torch.frontend.pipeline import PreprocessConfig, preprocess_train
 from psla_tpu_torch.models.convert import from_jax_variables
 from psla_tpu_torch.models.layers import BatchNorm
 from psla_tpu_torch.train.state import create_train_state
-from psla_tpu_torch.train.step import TrainDraws, draw_train, make_train_step_fn
+from psla_tpu_torch.train.step import TrainDraws, build_train_step, draw_train
 from tests.test_torch_augment import jax_preprocess_draws, tone_batch
 from tests.test_torch_backbones import NAMES, N_CLASS, port_model
 from tests.torch_port_fixtures import grad_recording, jax_backbone, jax_backbone_variables
@@ -102,7 +102,7 @@ def _port_step(name: str, dtype: torch.dtype, batch: dict, draws: TrainDraws) ->
         return seen[-1]
 
     with mock.patch.object(port_step, "preprocess_train", recording):
-        state, metrics = make_train_step_fn(PreprocessConfig(target_length=T, **AUGMENT))(
+        state, metrics = build_train_step(PreprocessConfig(target_length=T, **AUGMENT))(
             state, batch, draws)
     assert state.step == 1
     return {"loss": float(metrics["loss"]), "dtype": dtype, "sd": _float64(model.state_dict()),

@@ -19,6 +19,7 @@ from psla_tpu import cli as jax_cli
 from psla_tpu_torch import cli
 from psla_tpu_torch.models.convert import CHECKPOINT_FILE
 from tests.synth import build_corpus
+from tests.torch_port_fixtures import tmp_path  # noqa: F401
 
 torch.set_num_threads(2)
 
@@ -96,8 +97,8 @@ def test_resume_reproduces_the_uninterrupted_run_exactly(corpus, tmp_path):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (("--num-devices", "2"), "item 6"),
-    (("--ensemble-seeds", "2", "--num-devices", "2"), "item 6"),
+    (("--ensemble-seeds", "3", "--num-devices", "2"), "item 6b"),
+    (("--ensemble-seeds", "2", "--num-devices", "2"), "item 6b"),
     (("--act-compress", "qdq"), "item 9"),
     (("--dtype", "bfloat16"), "item 10"),
 ])

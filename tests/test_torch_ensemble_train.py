@@ -28,6 +28,7 @@ from psla_tpu_torch.tools import watch
 from psla_tpu_torch.tools.ensemble import ensemble_eval
 from psla_tpu_torch.train.ensemble_loop import HEAD_KEYS, EnsembleTrainer
 from tests.synth import build_corpus
+from tests.torch_port_fixtures import tmp_path  # noqa: F401
 
 torch.set_num_threads(2)
 
@@ -53,11 +54,13 @@ def argv(corpus, exp_dir, *extra) -> list[str]:
 
 @pytest.fixture(scope="module")
 def ens_run(corpus, tmp_path_factory):
-    """2 epochs, weight averaging over both, the protocol on an eval set."""
+    """2 epochs, weight averaging over both, the protocol on an eval set;
+    removed after the module's tests."""
     exp = str(tmp_path_factory.mktemp("ensexp"))
     summary = cli.run(argv(corpus, exp, "--n-epochs", "2", "--wa_start", "1", "--wa_end",
                            "2", "--data-eval", corpus[0]))
-    return summary, exp
+    yield summary, exp
+    shutil.rmtree(exp, ignore_errors=True)
 
 
 def read(path: str) -> np.ndarray:

@@ -38,7 +38,7 @@ from psla_tpu_torch.models.convert import from_jax_variables, load_variables
 from psla_tpu_torch.tools import compute_stats, convert_ckpt, ensemble, predict
 from psla_tpu_torch.tools import weight_averaging
 from tests.synth import build_corpus
-from tests.torch_port_fixtures import jax_model, jax_variables
+from tests.torch_port_fixtures import jax_model, jax_variables, tmp_path  # noqa: F401
 
 torch.set_num_threads(2)
 

@@ -26,7 +26,7 @@ from psla_tpu_torch.models import create_model
 from psla_tpu_torch.models.convert import from_jax_variables
 from psla_tpu_torch.tools import export as exp_mod
 from psla_tpu_torch.tools.serve import InferenceEngine
-from tests.torch_port_fixtures import jax_variables
+from tests.torch_port_fixtures import jax_variables, tmp_path  # noqa: F401
 
 torch.set_num_threads(2)
 
@@ -206,6 +206,7 @@ def test_bare_torch_loads_the_artifact(artifact, tmp_path):
     mean, lengths = wav.mean(axis=1), np.full((3,), chunk, np.int32)
     np.savez(tmp_path / "in.npz", wav=wav, mean=mean, lengths=lengths)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["OMP_NUM_THREADS"] = "2"  # the test process's own thread count
     proc = subprocess.run(
         [sys.executable, "-c", BARE, os.path.join(out, exp_mod.ARTIFACT),
          str(tmp_path / "in.npz"), str(tmp_path / "out.npy")],

@@ -35,7 +35,7 @@ from psla_tpu_torch.train.loop import Trainer
 from tests.synth import build_corpus
 from tests.test_convert import _imagenet_state_dict
 from tests.test_pretrained import _mobilenet_v2_imagenet_sd
-from tests.torch_port_fixtures import jax_backbone_variables, jax_variables
+from tests.torch_port_fixtures import jax_backbone_variables, jax_variables, tmp_path  # noqa: F401
 
 torch.set_num_threads(2)
 

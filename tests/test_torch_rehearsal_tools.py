@@ -18,6 +18,7 @@ import torch
 from psla_tpu.tools import flagship as jax_flagship
 from psla_tpu_torch import cli
 from psla_tpu_torch.tools import flagship, smoke
+from tests.torch_port_fixtures import tmp_path  # noqa: F401
 
 torch.set_num_threads(2)
 
@@ -150,10 +151,13 @@ def test_corpora_equal_jax(tmp_path, learnable):
         assert [e["labels"] for e in ours] == [e["labels"] for e in theirs]
 
 
-def test_flagship_preflight_kills_and_resumes(tmp_path):
+def test_flagship_preflight_kills_and_resumes(tmp_path, monkeypatch):
     """The whole rehearsal at the preflight shape on the CPU: leg 1 killed
     at epoch 2's first print step, leg 2 resumed to the end, the summary
-    parsed from the CLI subprocess's log."""
+    parsed from the CLI subprocess's log. The CLI subprocesses take the test
+    process's 2 threads (by default torch takes every core, which the other
+    test workers share)."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "2")
     res = flagship.run(clips=32, val_clips=16, epochs=3, batch_size=8, out=str(tmp_path),
                        preflight=True, n_print_steps=1, device="cpu",
                        step_clips_per_sec=123.0)

@@ -28,7 +28,7 @@ from psla_tpu_torch.models.convert import from_jax_variables
 from psla_tpu_torch.tools import ensemble as ensemble_tool
 from psla_tpu_torch.tools import fetch_pretrained, verify_release
 from psla_tpu_torch.tools import predict as predict_tool
-from tests.torch_port_fixtures import jax_variables
+from tests.torch_port_fixtures import jax_variables, tmp_path  # noqa: F401
 
 torch.set_num_threads(2)
 

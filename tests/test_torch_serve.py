@@ -35,7 +35,7 @@ from psla_tpu_torch.models import create_model
 from psla_tpu_torch.models.convert import from_jax_variables
 from psla_tpu_torch.tools import serve as serve_mod
 from psla_tpu_torch.tools.serve import InferenceEngine, _Request, make_server
-from tests.torch_port_fixtures import jax_model, jax_variables
+from tests.torch_port_fixtures import jax_model, jax_variables, tmp_path  # noqa: F401
 
 torch.set_num_threads(2)
 

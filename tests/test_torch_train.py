@@ -42,7 +42,7 @@ from psla_tpu_torch.models.convert import from_jax_variables
 from psla_tpu_torch.models.layers import BN_EPS, BatchNorm, drop_connect
 from psla_tpu_torch.train import optim
 from psla_tpu_torch.train.state import create_train_state
-from psla_tpu_torch.train.step import draw_train, make_eval_step_fn, make_train_step_fn
+from psla_tpu_torch.train.step import build_eval_step, build_train_step, draw_train
 from tests.test_torch_augment import tone_batch
 from tests.torch_port_fixtures import jax_variables
 
@@ -220,7 +220,7 @@ def test_remat_gives_the_same_step():
     cfg = PreprocessConfig(target_length=T, time_mask=24)
     n = cfg.fbank.buffer_length(T)
     batch = _step_batch(2, n)
-    step = make_train_step_fn(cfg)
+    step = build_train_step(cfg)
     results = []
     for remat in (False, True):
         model = port_model(v, remat=remat)
@@ -326,7 +326,7 @@ def test_eval_step_matches_jax():
                               batch_stats=v["batch_stats"], opt_state=None)
     ref_probs, ref_loss = jax.jit(jax_make_eval_step_fn(jax_model, jax_cfg))(jax_state, batch)
     state = create_train_state(port_model(v).train(), lambda s: 0.0, device="cpu")
-    probs, loss = make_eval_step_fn(cfg)(state, batch)
+    probs, loss = build_eval_step(cfg)(state, batch)
     assert not state.model.training
     np.testing.assert_allclose(probs.numpy(), np.asarray(ref_probs), atol=2e-5, rtol=0)
     np.testing.assert_allclose(loss.numpy(), np.asarray(ref_loss), atol=1e-5, rtol=0)
@@ -350,7 +350,7 @@ def test_int16_batch_steps_as_its_float32_copy():
         m = copy.deepcopy(model)
         state = create_train_state(m, lambda s: 1e-3, step=7, device="cpu")
         draws = draw_train(torch.Generator().manual_seed(1), m, B, cfg)
-        state, metrics = make_train_step_fn(cfg)(state, batch, draws)
+        state, metrics = build_train_step(cfg)(state, batch, draws)
         assert state.step == 8
         out.append((metrics["loss"], m.state_dict()))
     assert torch.equal(out[0][0], out[1][0])

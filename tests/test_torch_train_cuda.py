@@ -22,7 +22,7 @@ from psla_tpu_torch.frontend import fbank_cuda
 from psla_tpu_torch.frontend.pipeline import PreprocessConfig
 from psla_tpu_torch.models import create_model
 from psla_tpu_torch.train.state import create_train_state
-from psla_tpu_torch.train.step import draw_train, make_eval_step_fn, make_train_step_fn
+from psla_tpu_torch.train.step import build_eval_step, build_train_step, draw_train
 
 B, T, N_CLASS = 4, 64, 8
 CFG = PreprocessConfig(target_length=T, time_mask=24)
@@ -68,10 +68,10 @@ def test_train_step_through_the_kernel_on_card():
     draws = draw_train(torch.Generator(device="cuda").manual_seed(2), a.model, B, CFG)
     assert draws.keep.is_cuda and draws.pre.mixup.lam.is_cuda
     before = fbank_cuda.LAUNCHES
-    a, ma = make_train_step_fn(CFG)(a, batch(), draws)
+    a, ma = build_train_step(CFG)(a, batch(), draws)
     torch.cuda.synchronize()
     assert fbank_cuda.LAUNCHES == before + 1
-    b, mb = make_train_step_fn(dataclasses.replace(CFG, fbank_method="fft64"))(b, batch(), draws)
+    b, mb = build_train_step(dataclasses.replace(CFG, fbank_method="fft64"))(b, batch(), draws)
     assert fbank_cuda.LAUNCHES == before + 1
     assert np.isfinite(float(ma["loss"]))
     assert abs(float(ma["loss"]) - float(mb["loss"])) < ATOL
@@ -79,7 +79,7 @@ def test_train_step_through_the_kernel_on_card():
     for k in sa:
         np.testing.assert_allclose(sa[k].cpu().numpy(), sb[k].cpu().numpy(), atol=ATOL,
                                    rtol=0, err_msg=k)
-    probs, loss = make_eval_step_fn(CFG)(a, batch())
+    probs, loss = build_eval_step(CFG)(a, batch())
     assert probs.shape == (B, N_CLASS) and loss.shape == (B,)
     assert fbank_cuda.LAUNCHES == before + 2
     assert bool(torch.isfinite(probs).all()) and not a.model.training
@@ -92,7 +92,7 @@ def test_remat_gives_the_same_step_on_card():
     for remat in (False, True):
         s = state(remat)
         draws = draw_train(torch.Generator(device="cuda").manual_seed(3), s.model, B, CFG)
-        s, m = make_train_step_fn(CFG)(s, batch(), draws)
+        s, m = build_train_step(CFG)(s, batch(), draws)
         out.append((float(m["loss"]), copy.deepcopy(stats(s.model))))
     assert abs(out[0][0] - out[1][0]) < ATOL
     for k, v in out[0][1].items():

@@ -20,6 +20,8 @@ near-silent bands), which the last blocks' statistics, taken over 32 values
 a channel, carry to ~2e-5 on running variances of ~1.4.
 """
 
+import concurrent.futures
+
 import numpy as np
 import pytest
 import torch
@@ -36,7 +38,7 @@ from psla_tpu_torch.frontend.pipeline import PreprocessConfig
 from psla_tpu_torch.models import create_model
 from psla_tpu_torch.models.convert import from_jax_variables
 from psla_tpu_torch.train.state import create_train_state
-from psla_tpu_torch.train.step import TrainDraws, make_train_step_fn
+from psla_tpu_torch.train.step import TrainDraws, build_train_step
 from tests.test_torch_augment import jax_preprocess_draws, tone_batch
 from tests.torch_port_fixtures import jax_variables
 
@@ -57,41 +59,65 @@ def batches(n: int) -> list[dict]:
     return out
 
 
-@pytest.mark.parametrize("augmented", [False, True])
-def test_train_step_matches_jax(augmented):
-    kw = (dict(freq_mask=48, time_mask=24, mixup_rate=0.5) if augmented
-          else dict(freq_mask=0, time_mask=0, mixup_rate=0.0))
-    jax_cfg = JaxPreprocessConfig(target_length=T, **kw)
-    cfg = PreprocessConfig(target_length=T, **kw)
-    data = batches(cfg.fbank.buffer_length(T))
-    v = jax_variables(4, 21, N_CLASS)
+def config_kwargs(augmented: bool) -> dict:
+    return (dict(freq_mask=48, time_mask=24, mixup_rate=0.5) if augmented
+            else dict(freq_mask=0, time_mask=0, mixup_rate=0.0))
 
+
+def jax_run(augmented: bool) -> tuple[list[float], dict]:
+    """N_STEPS of the JAX step: its losses, and its state after step 0."""
+    jax_cfg = JaxPreprocessConfig(target_length=T, **config_kwargs(augmented))
+    data = batches(jax_cfg.fbank.buffer_length(T))
+    v = jax_variables(4, 21, N_CLASS)
     jax_model = JaxEffNetAttention(label_dim=N_CLASS, b=0, head_num=4, drop_connect_rate=0.0)
     tx = jax_make_optimizer(lambda step: LR)
     jstate = JaxTrainState(step=jnp.zeros((), jnp.int32), params=v["params"],
                            batch_stats=v["batch_stats"], opt_state=tx.init(v["params"]))
     jax_step = jax.jit(jax_make_train_step_fn(jax_model, tx, jax_cfg))
     rng = jax.random.PRNGKey(42)
+    losses, first = [], None
+    for i in range(N_STEPS):
+        jstate, m = jax_step(jstate, data[i % len(data)], rng)
+        losses.append(float(m["loss"]))
+        if i == 0:
+            first = {"params": jstate.params,
+                     "batch_stats": jax.tree.map(np.asarray, jstate.batch_stats)}
+    return losses, first
+
+
+@pytest.fixture(scope="module")
+def jax_runs():
+    """Both cases' JAX runs, compiled and run in two threads (XLA releases
+    the interpreter lock): {augmented: (losses, state after step 0)}."""
+    jax_variables(4, 21, N_CLASS)  # filled once, before the threads share it
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        runs = {a: pool.submit(jax_run, a) for a in (False, True)}
+        return {a: f.result() for a, f in runs.items()}
+
+
+@pytest.mark.parametrize("augmented", [False, True])
+def test_train_step_matches_jax(jax_runs, augmented):
+    cfg = PreprocessConfig(target_length=T, **config_kwargs(augmented))
+    data = batches(cfg.fbank.buffer_length(T))
+    v = jax_variables(4, 21, N_CLASS)
+    jax_losses, jax_first = jax_runs[augmented]
+    rng = jax.random.PRNGKey(42)
 
     model = create_model("efficientnet", label_dim=N_CLASS, eff_b=0, head_num=4,
                          drop_connect_rate=0.0)
     model.load_state_dict(from_jax_variables(v, N_CLASS))
     state = create_train_state(model, lambda step: LR, device="cpu")
-    step = make_train_step_fn(cfg)
+    step = build_train_step(cfg)
 
-    jax_losses, losses = [], []
+    losses = []
     for i in range(N_STEPS):
         batch = data[i % len(data)]
-        jstate, m = jax_step(jstate, batch, rng)
-        jax_losses.append(float(m["loss"]))
         pre_key, _ = jax.random.split(jax.random.fold_in(rng, i))
         draws = TrainDraws(jax_preprocess_draws(pre_key, B, T, F), None)
         state, m = step(state, batch, draws)
         losses.append(float(m["loss"]))
         if i == 0 and not augmented:
-            want = from_jax_variables(
-                {"params": jstate.params,
-                 "batch_stats": jax.tree.map(np.asarray, jstate.batch_stats)}, N_CLASS)
+            want = from_jax_variables(jax_first, N_CLASS)
             for k, t in model.state_dict().items():
                 if k.endswith(("running_mean", "running_var")):
                     np.testing.assert_allclose(t.numpy(), want[k].numpy(), atol=1e-5,

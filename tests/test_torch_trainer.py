@@ -23,6 +23,7 @@ forward within 2e-5 (tests/test_torch_model.py's B0 bar). The exact resume
 is tests/test_torch_cli.py's, through ``--resume``.
 """
 
+import concurrent.futures
 import functools
 import os
 import shutil
@@ -51,7 +52,7 @@ from psla_tpu_torch.frontend.pipeline import preprocess_eval
 from psla_tpu_torch.train.loop import Trainer
 from psla_tpu_torch.train.step import _wav_batch
 from tests.synth import build_corpus
-from tests.torch_port_fixtures import jax_variables
+from tests.torch_port_fixtures import jax_variables, tmp_path  # noqa: F401
 
 torch.set_num_threads(2)
 
@@ -109,8 +110,10 @@ def port_trainer(corpus, exp_dir, **overrides) -> Trainer:
 
 @pytest.fixture(scope="module")
 def twins(corpus, tmp_path_factory):
-    """3 epochs of each package's trainer: (port trainer, its state, its
-    exp_dir, the JAX exp_dir)."""
+    """3 epochs of each package's trainer, the JAX one in a thread while the
+    port's trains (XLA and torch release the interpreter lock): (port
+    trainer, its state, its exp_dir, the JAX exp_dir), removed after the
+    module's tests."""
     datafile, label_csv, ckpt = corpus
     jax_dir = str(tmp_path_factory.mktemp("exp_jax"))
     cfg = JaxExperimentConfig(**{**CONFIG, "data_train": datafile, "data_val": datafile,
@@ -122,12 +125,15 @@ def twins(corpus, tmp_path_factory):
     jax_trainer.model = _ShapeInit(label_dim=N_CLASS, b=0, head_num=HEADS,
                                    bn_momentum=cfg.bn_momentum, drop_connect_rate=0.0)
     jax_trainer._build_steps()
-    jax_trainer.train()
-
-    port_dir = str(tmp_path_factory.mktemp("exp_port"))
-    trainer = _no_drop_connect(port_trainer(corpus, port_dir))
-    state = trainer.train()
-    return trainer, state, port_dir, jax_dir
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        jax_run = pool.submit(jax_trainer.train)
+        port_dir = str(tmp_path_factory.mktemp("exp_port"))
+        trainer = _no_drop_connect(port_trainer(corpus, port_dir))
+        state = trainer.train()
+        jax_run.result()
+    yield trainer, state, port_dir, jax_dir
+    for d in (port_dir, jax_dir):
+        shutil.rmtree(d, ignore_errors=True)
 
 
 class _ShapeInit(JaxEffNetAttention):

@@ -9,13 +9,17 @@ statistics are randomized (mean ~N(0, 0.1), var ~U(0.5, 1.5)) so eval
 outputs are not flat, and the pooling kernels are widened so the
 probabilities spread. The same tree goes through both packages.
 ``jax_backbone_variables`` does the same for ResNetAttention and MBNet.
+``tmp_path``, imported by a test module, replaces pytest's with one that is
+removed when the test ends.
 """
 
 from __future__ import annotations
 
 import functools
+import shutil
 
 import numpy as np
+import pytest
 
 import jax
 import jax.numpy as jnp
@@ -124,3 +128,11 @@ def grad_recording(tx: optax.GradientTransformation) -> optax.GradientTransforma
         lambda updates, state, params=None: (updates, updates))
     return optax.chain(keep, tx)
 
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """pytest's ``tmp_path``, removed when the test ends: the port's tests
+    write checkpoints of tens of MB an epoch, and pytest keeps the
+    directories of its last three sessions."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
