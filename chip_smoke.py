@@ -111,14 +111,14 @@ result line):
    ``psla-torch-train --preset fsd50k`` (``cli.run``) for 1 epoch on (a)'s
    datafiles: the fbank launches must be the train steps plus every eval
    batch, the CSVs finite. (e) ``smoke.run`` and ``smoke.run_protocol`` on
-   the card (B0, T=64): artifacts, labels added, launches counted. (f)
+   the card (B0, T=64, bfloat16): artifacts, labels added, launches counted. (f)
    ``verify_release`` on a ``file://`` URL of a seeded B2 ``.pth`` of 200
    classes (``module.`` prefixes, an ``_fc``): every stage ok against the
    mAP ``tools/ensemble`` gives the file, the probabilities within 1e-4 of
    the plain ``predict_long``. (g) ``flagship.run`` at audioset_full width
-   (B2, T=1056, batch 128; 512 train and 128 val clips, 3 epochs), killed
-   at epoch 2's first print step and resumed: every epoch completed, the
-   summary beside phase 6's bare step.
+   (B2, T=1056, batch 128, bfloat16; 512 train and 128 val clips, 3
+   epochs), killed at epoch 2's first print step and resumed: every epoch
+   completed, the summary beside phase 6's float32 bare step.
 10. The ResNet50 and MobileNetV2 backbones (``--model resnet|mbnet``:
    ResNetAttention and MBNet) at the audioset_full widths (527 classes,
    T=1056, 128 mels, float32 with TF32 off unless stated) on seeded
@@ -184,6 +184,28 @@ result line):
    launch a replica a dispatch, timed beside one device, with where a
    dispatch's time goes (host issue, the input copies, each card's
    kernels).
+13. bfloat16 training (``--dtype bfloat16``) and int8 activation
+   compression (``--act-compress``) at the audioset_full widths (B2, 4
+   heads, 527 classes, T=1056, batch 100) from phase 6's seeded weights,
+   int16 batch and draws; parameters, statistics and Adam stay float32.
+   (a) One bf16 step through the fbank kernel (one launch, counted) held to
+   the same step through the plain fbank at phase 6's bars (loss and
+   running statistics within 1e-5, parameters within 2 x lr); then
+   remat=True from the same start, loss within 1e-5 and parameters within
+   2 x lr. (b) q8save and qdq bf16 steps from the same start against (a)'s
+   uncompressed step, at the JAX package's bars (tests/test_qsave.py):
+   q8save's loss within 1e-6 and gradient cosine > 0.999, qdq's within
+   5e-2 and > 0.9; each gradient differs from the uncompressed one. (c) 2
+   warm-up and 10 timed steps each of bf16, bf16 + q8save and bf16 + qdq:
+   device ms (CUDA events), wall ms, clips/s, peak memory (q8save's below
+   bf16's), beside phase 6's float32 step; ``--profile`` adds the bf16
+   step's device time by group. (d) One bf16 step each of ResNet50 and
+   MobileNetV2 at batch 100, finite, its loss beside its float32 step's
+   from the same start. (e) ``psla-torch-train --dtype bfloat16
+   --act-compress q8save`` (``cli.run``) for 1 epoch on phase 7's corpus
+   writer: the fbank launches the train steps plus every eval batch, the
+   CSVs finite, the float32 wa checkpoint served through
+   ``InferenceEngine``.
 
 The line before the last is a JSON object with one record per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -1139,9 +1161,10 @@ def train_batch(cfg: PreprocessConfig, seed: int = 5, batch: int = STEP_BATCH,
 
 
 def train_state(sd: dict, remat: bool = False, n_class: int = N_CLASS, lr: float = STEP_LR,
-                steps_per_epoch: int = STEPS_PER_EPOCH, model_name: str = "efficientnet"):
+                steps_per_epoch: int = STEPS_PER_EPOCH, model_name: str = "efficientnet",
+                dtype: torch.dtype = torch.float32, act_compress: str = "none"):
     model = create_model(model_name, label_dim=n_class, eff_b=EFF_B, head_num=HEADS,
-                         remat=remat)
+                         remat=remat, dtype=dtype, act_compress=act_compress)
     model.load_state_dict(sd)
     schedule = psla_lr_schedule(lr, steps_per_epoch, lrscheduler_start=10,
                                 lrscheduler_decay=0.5, warmup=True)
@@ -1157,12 +1180,15 @@ def step_held_to_plain(cfg: PreprocessConfig, batch: dict, make_state, what: str
     count set to 0 just before and read just after: one launch), held to
     the same step, with the same draws, through the plain fbank ('fft64'):
     the loss, the running statistics and the parameters (the latter within
-    2 x the step's learning rate). Returns (the stepped state, its loss,
-    its state_dict, the step function, the generator, the draws)."""
+    2 x the step's learning rate). Returns (the stepped state, its loss, its state_dict, the step
+    function, the generator, the draws)."""
     size = len(batch["wav"])
     state = make_state()
-    check(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32,
-          "TF32 is on for a float32 train step")
+    dtype = getattr(state.model, "dtype", torch.float32)
+    precision = "float32 (TF32 off)" if dtype == torch.float32 else str(dtype).split(".")[1]
+    if dtype == torch.float32:
+        check(not torch.backends.cuda.matmul.allow_tf32
+              and not torch.backends.cudnn.allow_tf32, "TF32 is on for a float32 train step")
     lr = state.schedule(state.step)
     param_atol = 2 * lr
     plain_state = make_state()
@@ -1173,7 +1199,7 @@ def step_held_to_plain(cfg: PreprocessConfig, batch: dict, make_state, what: str
     n_keep = 0 if draws.keep is None else draws.keep.shape[0]
     n_class = batch["labels"].shape[1]
     print(f"{what}: {arch(state.model)}, {n_class} classes, T={cfg.target_length}, batch "
-          f"{size}, float32 (TF32 off), mixup {cfg.mixup_rate}, SpecAugment "
+          f"{size}, {precision}, mixup {cfg.mixup_rate}, SpecAugment "
           f"{cfg.freq_mask}/{cfg.time_mask}, drop-connect on {n_keep} blocks, Adam at "
           f"lr {lr} (step {state.step}); int16 batch [{size}, {batch['wav'].shape[1]}], "
           f"{int((batch['length'] == 0).sum())} empty and "
@@ -2340,7 +2366,7 @@ def flagship_phase(root: str, step_clips_s: float):
     print(f"flagship loader-fed rate: epoch {FLAGSHIP_EPOCHS}'s train loop "
           f"{rates.get(FLAGSHIP_EPOCHS)} clips/s (each epoch: {rates}), the meters' median "
           f"{res['sustained_clips_per_sec']} clips/s (data share {res['data_time_share']}), "
-          f"beside phase 6's bare step {res['bare_step_clips_per_sec']} clips/s at batch "
+          f"beside phase 6's float32 bare step {res['bare_step_clips_per_sec']} clips/s at batch "
           f"{STEP_BATCH}")
     check(res["resume_completed_epochs"] == FLAGSHIP_EPOCHS, f"flagship: {res}")
     check(res["resumed_from_epoch"] < FLAGSHIP_EPOCHS and res["wa_checkpoint"],
@@ -3377,6 +3403,200 @@ def dp_phase(b2: tuple[float, float] | None, world: int = DP_WORLD,
     return out
 
 
+# ---------------------------------------------------------------- phase 13
+
+# bfloat16 training (--dtype bfloat16) and int8 activation compression
+# (--act-compress q8save|qdq) at the audioset_full widths, from phase 6's
+# seeded weights, batch and draws. Parameters, BatchNorm statistics and Adam
+# stay float32.
+# int8 compression against the uncompressed bf16 step from the same start
+# (the JAX package's bars, tests/test_qsave.py:121,127,132): q8save's forward
+# is the uncompressed one, qdq's quantizes the depthwise inputs
+COMPRESS_BARS = {"q8save": (1e-6, 0.999), "qdq": (5e-2, 0.9)}  # (loss atol, cosine)
+
+
+def gradients(state) -> torch.Tensor:
+    """The flat float64 gradient of the state's last step."""
+    return torch.cat([p.grad.detach().double().flatten() for p in state.model.parameters()])
+
+
+def bf16_held_steps(cfg: PreprocessConfig, batch: dict, sd: dict):
+    """(a) and (b): the bf16 step through the kernel held to the plain
+    fbank's, then with remat, then q8save and qdq from the same start
+    against the uncompressed step. Returns (step, generator, the held
+    state) for the timing."""
+    state, loss, after, step, gen, draws = step_held_to_plain(
+        cfg, batch, lambda: train_state(sd, dtype=torch.bfloat16), "bf16 train step")
+    check(all(t.dtype == torch.float32 for t in after.values()),
+          "a bf16 step left a parameter or statistic outside float32")
+    grads = gradients(state)
+    params = [k for k, _ in state.model.named_parameters()]
+    param_atol = 2 * state.schedule(START_STEP)
+
+    remat = train_state(sd, remat=True, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    remat, metrics = step(remat, batch, draws)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    err = abs(float(metrics["loss"]) - loss)
+    perr = max_diff(remat.model.state_dict(), after, params)
+    print(f"bf16 remat=True: loss {err:.3e} from remat=False (bar {STEP_LOSS_ATOL}), "
+          f"parameters {perr:.3e} (bar {param_atol}); peak memory {peak / 2**30:.2f} GiB")
+    check(err <= STEP_LOSS_ATOL, f"bf16 remat loss off by {err}")
+    check(perr <= param_atol, f"bf16 remat parameters off by {perr}")
+    del remat
+
+    for mode, (loss_atol, min_cos) in COMPRESS_BARS.items():
+        other = train_state(sd, dtype=torch.bfloat16, act_compress=mode)
+        other, metrics = step(other, batch, draws)
+        g = gradients(other)
+        err = abs(float(metrics["loss"]) - loss)
+        cos = float(g @ grads / (g.norm() * grads.norm()))
+        # both modes change the depthwise weight gradients (q8save reads the
+        # int8 copy there): a step equal to the uncompressed one went round them
+        moved = float((g - grads).norm() / grads.norm())
+        print(f"bf16 --act-compress {mode}: loss {float(metrics['loss']):.6f}, {err:.3e} from "
+              f"the uncompressed step (bar {loss_atol}), gradient cosine {cos:.6f} (bar "
+              f"{min_cos}), gradient {moved:.3e} of its norm from the uncompressed one (> 0)")
+        check(err <= loss_atol, f"{mode} loss off the uncompressed step's by {err}")
+        check(cos > min_cos, f"{mode} gradient cosine {cos}")
+        check(moved > 0, f"{mode}: the gradient is the uncompressed step's")
+        del other
+    return step, gen, state
+
+
+def bf16_timing(cfg: PreprocessConfig, batch: dict, sd: dict, step, gen, state,
+                f32: tuple[float, float], profile: bool):
+    """(c) 2 warm-up and 10 timed steps of bf16, bf16 + q8save and bf16 +
+    qdq, beside phase 6's float32 step (``f32``: device ms, clips/s)."""
+    out = {}
+    for mode in ("none", "q8save", "qdq"):
+        if mode != "none":
+            state = train_state(sd, dtype=torch.bfloat16, act_compress=mode)
+        state, device_ms, wall_ms, peak, losses = timed_steps(step, state, batch, gen, cfg)
+        out[mode] = (float(np.mean(device_ms)), STEP_BATCH / wall_ms * 1e3, peak)
+        print(f"bf16 train step, --act-compress {mode}, {TIMED_STEPS} steps after "
+              f"{WARM_STEPS} warm-up: device {np.mean(device_ms):.2f} ms/step (CUDA events; "
+              f"{min(device_ms):.2f}-{max(device_ms):.2f}), wall {wall_ms:.2f} ms/step, "
+              f"{STEP_BATCH / wall_ms * 1e3:.1f} clips/s; peak memory {peak / 2**30:.2f} GiB "
+              f"(torch.cuda.max_memory_allocated); losses {losses[0]:.4f} .. {losses[-1]:.4f}")
+        if profile and mode == "none":
+            profile_train_step(state, step, batch, gen, cfg)
+        del state
+        torch.cuda.empty_cache()
+    check(out["q8save"][2] < out["none"][2],
+          f"q8save peaks at {out['q8save'][2]} bytes, not below bf16's {out['none'][2]}")
+    print(f"bf16 steps beside phase 6's float32 step in this call ({f32[0]:.2f} ms, "
+          f"{f32[1]:.1f} clips/s): " + ", ".join(
+              f"{m} {ms:.2f} ms ({f32[0] / ms:.2f}x), {rate:.1f} clips/s, {peak / 2**30:.2f} GiB"
+              for m, (ms, rate, peak) in out.items()) + f" ({card()})")
+
+
+def bf16_backbones(cfg: PreprocessConfig, batch: dict):
+    """(d) One bf16 train step of ResNet50 and of MobileNetV2 at batch
+    STEP_BATCH, beside their float32 step from the same start and draws."""
+    for name in BACKBONES:
+        sd = seeded_state_dict(BACKBONE_SEEDS[0], model=name)
+        losses = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            state = train_state(sd, model_name=name, dtype=dtype)
+            draws = draw_train(torch.Generator(device=DEVICE).manual_seed(0), state.model,
+                               STEP_BATCH, cfg)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            state, metrics = build_train_step(cfg)(state, batch, draws)
+            losses[dtype] = float(metrics["loss"])
+            peak = torch.cuda.max_memory_allocated()
+            finite = all(bool(torch.isfinite(p).all()) for p in state.model.parameters())
+            check(np.isfinite(losses[dtype]) and finite, f"{name} {dtype} step not finite")
+            del state
+            torch.cuda.empty_cache()
+        print(f"{name} train step at batch {STEP_BATCH}: bf16 loss "
+              f"{losses[torch.bfloat16]:.6f} beside float32 {losses[torch.float32]:.6f} from "
+              f"the same start ({abs(losses[torch.bfloat16] - losses[torch.float32]):.3e} "
+              f"apart); bf16 peak memory {peak / 2**30:.2f} GiB")
+
+
+def bf16_trainer(root: str) -> int:
+    """(e) ``cli.run --dtype bfloat16 --act-compress q8save`` at the
+    audioset_full preset for 1 epoch on phase 7's corpus writer: the fbank
+    launches are the train steps plus every eval batch; the CSVs finite; the
+    wa checkpoint (float32) serves through ``InferenceEngine``. Returns the
+    launches."""
+    train_json, val_json, _ = write_corpus(root)
+    exp = os.path.join(root, "exp_bf16")
+    argv = ["--preset", "audioset_full", "--data-train", train_json, "--data-val", val_json,
+            "--data-eval", val_json, "--label-csv", assets.label_csv_for("audioset"),
+            "--exp-dir", exp, "--warmup", "False", "--n-epochs", "1", "--wa_start", "1",
+            "--wa_end", "1", "--impretrain", "False", "--target_length", str(TARGET), "-b",
+            str(STEP_BATCH), "--dtype", "bfloat16", "--act-compress", "q8save",
+            "--device", DEVICE]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fbank_cuda.LAUNCHES = 0
+    t0 = time.perf_counter()
+    run = run_cli(argv)
+    torch.cuda.synchronize()
+    launches, wall = fbank_cuda.LAUNCHES, time.perf_counter() - t0
+    check(run.config.dtype == "bfloat16" and run.config.act_compress == "q8save",
+          f"the trainer ran {run.config.dtype} / {run.config.act_compress}")
+    spe, vb = run.steps_per_epoch, run.val_loader.batches_per_epoch()
+    eb = run.eval_loader.batches_per_epoch()
+    want = spe + vb + vb + 2 * (vb + eb) + eb  # as fsd_trainer counts them
+    secs = run.train_seconds[1]
+    print(f"psla-torch-train --dtype bfloat16 --act-compress q8save (cli.run, audioset_full: "
+          f"{arch(run._new_model())}, T={TARGET}, batch {STEP_BATCH}): 1 epoch of {spe} steps "
+          f"in {secs:.3f} s of train loop ({spe * STEP_BATCH / secs:.1f} clips/s), {wall:.2f} s "
+          f"in all; fbank launches {launches} (train steps {spe} + eval batches {want - spe}); "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card()})")
+    check(launches == want, f"bf16 trainer: {launches} fbank launches, want {want}")
+    for name in ("result.csv", "predictions/target.csv", "predictions/predictions_1.csv",
+                 "wa_result.csv", "best_single_result.csv", "ensemble_result.csv"):
+        values = np.loadtxt(os.path.join(exp, name), delimiter=",")
+        check(values.size > 0 and bool(np.all(np.isfinite(values))), f"{name}: not finite")
+    sd = load_variables(os.path.join(exp, "models", "wa"))
+    check(all(t.dtype == torch.float32 for t in sd.values()), "a bf16 run saved non-float32")
+    model = create_model("efficientnet", label_dim=N_CLASS, eff_b=run.config.eff_b,
+                         head_num=run.config.att_head)
+    model.load_state_dict(sd)
+    engine = InferenceEngine([model], PreprocessConfig(target_length=TARGET),
+                             make_name_dict(assets.label_csv_for("audioset")), batch_size=4,
+                             device=DEVICE)
+    try:
+        probs = engine.predict(decode_wav(open(os.path.join(root, "val_0000.wav"), "rb")
+                                          .read())[0], SR)
+    finally:
+        engine.close()
+    check(probs.shape == (N_CLASS,) and bool(np.all(np.isfinite(probs))),
+          "the bf16 wa checkpoint served non-finite probabilities")
+    print(f"bf16 wa checkpoint served (float32 engine): probabilities "
+          f"{probs.min():.4f}..{probs.max():.4f}")
+    return launches
+
+
+def bf16_phase(f32: tuple[float, float], profile: bool) -> dict:
+    """Phase 13: bfloat16 training and int8 activation compression. Returns
+    the fbank kernel's launches on its paths and the steps' numbers."""
+    t_phase = time.perf_counter()
+    cfg = train_config()
+    batch = train_batch(cfg)
+    sd = seeded_state_dict(SEEDS[0])
+    step, gen, state = bf16_held_steps(cfg, batch, sd)
+    torch.cuda.empty_cache()
+    bf16_timing(cfg, batch, sd, step, gen, state, f32, profile)
+    del state
+    torch.cuda.empty_cache()
+    bf16_backbones(cfg, batch)
+    root = tempfile.mkdtemp(prefix="psla_bf16_")
+    try:
+        trainer_launches = bf16_trainer(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches_bf16_step": 1, "launches_bf16_trainer_run": trainer_launches}
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -3423,6 +3643,8 @@ def main(argv=None) -> int:
     record.update(ensemble_phase((step_ms, step_clips_s)))
     torch.cuda.empty_cache()
     record.update(dp_phase((step_ms, step_clips_s)))
+    torch.cuda.empty_cache()
+    record.update(bf16_phase((step_ms, step_clips_s), args.profile))
     for r in records:
         check(r["launches"] > 0, f"kernel {r['name']} was not launched on its path")
     print(f"total {time.perf_counter() - t0:.1f} s")

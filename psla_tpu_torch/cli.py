@@ -113,7 +113,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="kept for the JAX package's flag; the kernel's spectrum is "
                         "float64 whatever it says")
     p.add_argument("--act-compress", choices=["none", "q8save", "qdq"], default=None,
-                   help="not ported yet (ROADMAP Queue 1 item 9)")
+                   help="int8 compression of the depthwise convolutions' inputs "
+                        "(EfficientNet only): q8save keeps them as int8 for backward, "
+                        "qdq quantizes them straight-through")
     p.add_argument("--remat", type=_bool, default=None,
                    help="rematerialize MBConv blocks in backward (torch.utils.checkpoint)")
     p.add_argument("--tensorboard", type=_bool, default=None,

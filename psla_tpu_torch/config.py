@@ -76,11 +76,14 @@ class ExperimentConfig:
     num_workers: int = 8
     n_print_steps: int = 100
     seed: int = 0
-    dtype: str = "float32"  # "bfloat16": ROADMAP Queue 1 item 10
+    # compute dtype of training and validation, "float32" or "bfloat16";
+    # parameters, BatchNorm statistics and Adam stay float32
+    dtype: str = "float32"
     # rematerialize MBConv blocks in backward (torch.utils.checkpoint):
     # a quarter of the peak memory on the card (PERF.md)
     remat: bool = False
-    # int8 compression of depthwise-conv activations: ROADMAP Queue 1 item 9
+    # int8 compression of the depthwise convolutions' inputs (ops/qsave.py):
+    # 'none', 'q8save' (the same forward, an int8 copy for backward) or 'qdq'
     act_compress: str = "none"
     # fbank lowering: 'auto' (the CUDA kernel on the card, 'fft' on the
     # CPU), 'fft', 'gemm', or 'pallas' (the kernel) -- frontend/pipeline.py
@@ -146,8 +149,6 @@ def unported(cfg: ExperimentConfig):
     later = (
         (cfg.ensemble_seeds > 1 and ranks > 1, "--ensemble-seeds over 1 on several ranks",
          "item 6b (ensembles across cards)"),
-        (cfg.act_compress != "none", "--act_compress", "item 9 (int8 activation compression)"),
-        (cfg.dtype == "bfloat16", "--dtype bfloat16", "item 10 (bfloat16 training)"),
     )
     for refused, what, item in later:
         if refused:

@@ -15,7 +15,12 @@ drops its residual branch per sample at ``drop_rate`` = 0.2 * idx / blocks
 bool row per such block, in block order: ``drop_blocks``; made by
 ``train.step.draw_train``). ``remat`` recomputes each block's forward in
 backward (``torch.utils.checkpoint``), as the JAX package's ``nn.remat``
-does: only the block boundaries are kept.
+does: only the block boundaries are kept. The recomputed forward is the
+first one bit for bit, the int8 copy of ``act_compress='q8save'`` and the
+bfloat16 BatchNorms included (tests/test_torch_bf16_train.py).
+
+``act_compress`` ('none', 'q8save' or 'qdq'; ops/qsave.py) acts on each
+block's depthwise convolution (``layers.conv_bn``) and adds no parameter.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from psla_tpu_torch.models.layers import (
+    ACT_COMPRESS,
     BatchNorm,
     SameConv2d,
     conv_bn,
@@ -105,10 +111,11 @@ class MBConvBlock(nn.Module):
 
     def __init__(self, kernel: int, stride: int, expand_ratio: int,
                  in_filters: int, out_filters: int, se_ratio: float,
-                 drop_rate: float):
+                 drop_rate: float, act_compress: str = "none"):
         super().__init__()
         expanded = in_filters * expand_ratio
         self.drop_rate = drop_rate
+        self.act_compress = act_compress
         self.has_skip = stride == 1 and in_filters == out_filters
         if expand_ratio != 1:
             self._expand_conv = SameConv2d(in_filters, expanded, 1)
@@ -150,7 +157,7 @@ class MBConvBlock(nn.Module):
         inputs = x
         if hasattr(self, "_expand_conv"):
             x = conv_bn(x, self._expand_conv, self._bn0, "silu")
-        x = conv_bn(x, self._depthwise_conv, self._bn1, "silu")
+        x = conv_bn(x, self._depthwise_conv, self._bn1, "silu", self.act_compress)
         if self.has_se:
             s = x.mean(dim=(2, 3), keepdim=True)
             s = self._se_expand(nn.functional.silu(self._se_reduce(s)))
@@ -167,8 +174,10 @@ class EfficientNet(nn.Module):
     """EfficientNet feature extractor. NCHW in; [B, C, H/32, W/32] out."""
 
     def __init__(self, b: int = 2, drop_connect_rate: float = DROP_CONNECT_RATE,
-                 remat: bool = False):
+                 remat: bool = False, act_compress: str = "none"):
         super().__init__()
+        if act_compress not in ACT_COMPRESS:
+            raise ValueError(f"unknown act_compress {act_compress!r}; choices: {ACT_COMPRESS}")
         self.remat = remat
         stem, blocks, head = efficientnet_arch(b)
         self.feature_dim = head
@@ -186,6 +195,7 @@ class EfficientNet(nn.Module):
                     out_filters=args.out_filters,
                     se_ratio=args.se_ratio,
                     drop_rate=drop_connect_rate * len(mods) / total,
+                    act_compress=act_compress,
                 ))
         self._blocks = nn.ModuleList(mods)
         self._conv_head = SameConv2d(blocks[-1][0].out_filters, head, 1)

@@ -24,13 +24,14 @@ from psla_tpu_torch.models.pooling import AttentionPool, MeanPool, MultiHeadAtte
 class EffNetAttention(nn.Module):
     def __init__(self, label_dim: int = 527, b: int = 2, head_num: int = 4,
                  dtype: torch.dtype = torch.float32,
-                 drop_connect_rate: float = 0.2, remat: bool = False):
+                 drop_connect_rate: float = 0.2, remat: bool = False,
+                 act_compress: str = "none"):
         super().__init__()
         self.label_dim, self.b, self.head_num = label_dim, b, head_num
         # compute dtype of the forward; parameters stay float32
         self.dtype = dtype
         self.effnet = EfficientNet(b=b, drop_connect_rate=drop_connect_rate,
-                                   remat=remat)
+                                   remat=remat, act_compress=act_compress)
         c = self.effnet.feature_dim
         if head_num > 1:
             # the reference always builds 4 heads whatever head_num says

@@ -21,6 +21,8 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from psla_tpu_torch.ops.qsave import DwConvQ8Save, qdq
+
 BN_EPS = 1e-3
 # torch's momentum convention (running = (1 - m) * running + m * batch):
 # the JAX package's flax momentum 0.99, and the reference backbone's
@@ -70,16 +72,21 @@ class SameConv2d(nn.Conv2d):
     def reset_parameters(self, generator: torch.Generator | None = None):
         _he_normal_fan_out_(self, generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def pad_input(self, x: torch.Tensor) -> tuple[torch.Tensor, tuple[int, int]]:
+        """(the input, the conv's own padding): symmetric TF-SAME padding is
+        left to the conv, asymmetric padding is applied here by ``F.pad``."""
         k, s = self.kernel_size[0], self.stride[0]
         ph = same_padding(x.shape[-2], k, s)
         pw = same_padding(x.shape[-1], k, s)
+        if ph[0] == ph[1] and pw[0] == pw[1]:
+            return x, (ph[0], pw[0])
+        return F.pad(x, (pw[0], pw[1], ph[0], ph[1])), (0, 0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x, padding = self.pad_input(x)
         w = self.weight.to(x.dtype)
         b = None if self.bias is None else self.bias.to(x.dtype)
-        if ph[0] == ph[1] and pw[0] == pw[1]:  # symmetric: let the conv pad
-            return F.conv2d(x, w, b, s, (ph[0], pw[0]), 1, self.groups)
-        x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
-        return F.conv2d(x, w, b, s, 0, 1, self.groups)
+        return F.conv2d(x, w, b, self.stride[0], padding, 1, self.groups)
 
 
 class PadConv2d(nn.Conv2d):
@@ -135,10 +142,16 @@ class BatchNorm(nn.Module):
     (the recomputed forward of a rematerialized block) the statistics are
     folded into copies, so a step updates the buffers once.
 
+    A bfloat16 input in train mode: ``F.batch_norm`` takes the statistics
+    in float32 and rounds the normalized output once to bfloat16, as flax's
+    ``BatchNorm(dtype=bfloat16)`` does (tests/test_torch_bf16_train.py).
+
     ``float_out``: return the parameters' dtype, float32, whatever the
     input's (flax's ``BatchNorm(dtype=jnp.float32)``, as the JAX ResNet50
-    and MobileNetV2 build it). EfficientNet's BatchNorm rounds to the
-    input's dtype (``dtype=self.dtype`` there).
+    and MobileNetV2 build it); in train mode the input is cast up first, so
+    the normalized value is never rounded to the input's dtype.
+    EfficientNet's BatchNorm rounds to the input's dtype
+    (``dtype=self.dtype`` there).
 
     ``group``: a process group of several ranks, each holding an equal
     share of the batch (``train.state.replicate_state`` sets it for a
@@ -163,6 +176,8 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
+            if self.float_out:  # normalized in float32, never rounded to x's dtype
+                x = x.to(self.weight.dtype)
             mean, var = self.running_mean, self.running_var
             if self.replaying:
                 mean, var = mean.clone(), var.clone()
@@ -178,7 +193,7 @@ class BatchNorm(nn.Module):
                     m = self.momentum
                     mean.mul_(1.0 - m).add_(batch_mean, alpha=m)
                     var.mul_(1.0 - m).add_(batch_var * (n / (n - 1)), alpha=m)
-            return y.to(self.weight.dtype) if self.float_out else y
+            return y
         mul = self.weight * torch.rsqrt(self.running_var + self.eps)
         if x.dtype == mul.dtype:
             shift = self.bias - self.running_mean * mul
@@ -219,27 +234,34 @@ class SyncBatchNormFn(torch.autograd.Function):
     averages over the ranks with the other gradients.
     ``torch.nn.SyncBatchNorm`` runs only on the card (its statistics
     kernels are CUDA's), so the port keeps its own.
+
+    A bfloat16 input is computed in float32 both ways, as flax computes
+    its statistics (``force_float32_reductions``): the statistics and the
+    sums come from the input cast up, ``y`` and ``dx`` are rounded once to
+    the input's dtype.
     """
 
     @staticmethod
     def forward(ctx, x, weight, bias, eps, group):
         world = dist.get_world_size(group)
-        var_l, mean_l = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+        xf = _widened(x)
+        var_l, mean_l = torch.var_mean(xf, dim=(0, 2, 3), correction=0)
         means, variances = _gather_rows(torch.stack([mean_l, var_l]), group).unbind(1)
         mean = means.mean(0)
         var = (variances + (means - mean) ** 2).mean(0)
         invstd = torch.rsqrt(var + eps)
-        y = ((x - mean[:, None, None]) * (invstd * weight)[:, None, None]
+        y = ((xf - mean[:, None, None]) * (invstd * weight)[:, None, None]
              + bias[:, None, None])
         ctx.save_for_backward(x, weight, mean, invstd)
         ctx.group, ctx.n = group, x.numel() // x.shape[1] * world
         ctx.mark_non_differentiable(mean, var)
-        return y, mean, var
+        return y.to(x.dtype), mean, var
 
     @staticmethod
     def backward(ctx, dy, _mean, _var):
         x, weight, mean, invstd = ctx.saved_tensors
-        x_hat = (x - mean[:, None, None]) * invstd[:, None, None]
+        dy = _widened(dy)
+        x_hat = (_widened(x) - mean[:, None, None]) * invstd[:, None, None]
         sum_dy = dy.sum((0, 2, 3))
         sum_dy_xhat = (dy * x_hat).sum((0, 2, 3))
         sums = torch.stack([sum_dy, sum_dy_xhat])
@@ -247,7 +269,12 @@ class SyncBatchNormFn(torch.autograd.Function):
         n = ctx.n
         dx = (weight * invstd / n)[:, None, None] * (
             n * dy - sums[0][:, None, None] - x_hat * sums[1][:, None, None])
-        return dx, sum_dy_xhat, sum_dy, None, None
+        return dx.to(x.dtype), sum_dy_xhat, sum_dy, None, None
+
+
+def _widened(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in float32, or in its own dtype where that is wider."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
 
 
 def set_batchnorm_group(model: nn.Module, group):
@@ -278,7 +305,22 @@ def activation(x: torch.Tensor, act: str | None) -> torch.Tensor:
     raise ValueError(f"unknown activation {act!r}")
 
 
+ACT_COMPRESS = ("none", "q8save", "qdq")
+
+
 def conv_bn(x: torch.Tensor, conv: SameConv2d, bn: BatchNorm,
-            act: str | None = "silu") -> torch.Tensor:
-    """Conv (no bias) + BatchNorm + optional activation."""
-    return activation(bn(conv(x)), act)
+            act: str | None = "silu", act_compress: str = "none") -> torch.Tensor:
+    """Conv (no bias) + BatchNorm + optional activation.
+
+    ``act_compress`` (ops/qsave.py; one of ``ACT_COMPRESS``, checked where
+    the model is built) is passed for the depthwise conv only, as the JAX
+    package's ``ConvBN`` applies it to grouped convs only: 'q8save' keeps
+    the conv's input for backward as int8 (``DwConvQ8Save``, the same
+    forward), 'qdq' feeds the conv the straight-through int8
+    quantize-dequantize of its input."""
+    if act_compress == "q8save":
+        x, padding = conv.pad_input(x)
+        x = DwConvQ8Save.apply(x, conv.weight.to(x.dtype), conv.stride[0], padding)
+    else:
+        x = conv(qdq(x, axis=1) if act_compress == "qdq" else x)
+    return activation(bn(x), act)

@@ -23,6 +23,7 @@ def create_model(
     remat: bool = False,
     drop_connect_rate: float = 0.2,
     bn_momentum: float = 0.99,
+    act_compress: str = "none",
 ) -> torch.nn.Module:
     """Build the module for a model name (run.py's --model choices), in
     eval mode.
@@ -30,27 +31,28 @@ def create_model(
     Weights are initialised as the JAX package initialises them (He-normal
     over fan-out for convs, the reference's uniform for the pooling heads,
     variance scaling for MBNet's classifier), drawn from ``generator``
-    (default: seeded with 0). For EfficientNet, ``remat`` and
-    ``drop_connect_rate`` act in train mode (models/efficientnet.py), and
-    so does ``bn_momentum``, the running statistics' momentum in flax's
-    convention (0.99 keeps 99% of the old statistics at each step, torch's
-    momentum 0.01). ResNet and MBNet keep torch's momentum 0.1, ignore
-    ``eff_b``, ``head_num`` (ResNet has one attention head, MBNet none),
-    ``drop_connect_rate`` and ``bn_momentum``, and refuse ``remat``, as the
-    JAX package does.
+    (default: seeded with 0). For EfficientNet, ``remat``,
+    ``drop_connect_rate`` and ``act_compress`` (ops/qsave.py) act in train
+    mode (models/efficientnet.py), and so does ``bn_momentum``, the running
+    statistics' momentum in flax's convention (0.99 keeps 99% of the old
+    statistics at each step, torch's momentum 0.01). ResNet and MBNet keep
+    torch's momentum 0.1, ignore ``eff_b``, ``head_num`` (ResNet has one
+    attention head, MBNet none), ``drop_connect_rate`` and ``bn_momentum``,
+    and refuse ``remat`` and ``act_compress``, as the JAX package does.
     """
     if name == "efficientnet":
         model = EffNetAttention(label_dim=label_dim, b=eff_b, head_num=head_num,
                                 dtype=dtype, drop_connect_rate=drop_connect_rate,
-                                remat=remat)
+                                remat=remat, act_compress=act_compress)
         for mod in model.modules():
             if isinstance(mod, BatchNorm):
                 mod.momentum = 1.0 - bn_momentum
     elif name in ("resnet", "mbnet"):
-        if remat:
+        if remat or act_compress != "none":
             # refused rather than ignored (the reference's ignored-flag quirks
             # are not reproduced)
-            raise ValueError(f"remat is an EfficientNet-only option (got model={name!r})")
+            raise ValueError(f"remat/act_compress are EfficientNet-only options "
+                             f"(got model={name!r})")
         model = (ResNetAttention if name == "resnet" else MBNet)(label_dim=label_dim,
                                                                  dtype=dtype)
     else:

@@ -6,8 +6,9 @@ path at toy shape; this drives the same surface at the configuration every
 published AudioSet run uses (reference: egs/audioset/run.sh:22-29 +
 src/run.py:131 + src/traintest.py:73-212): EffNet-B2, T=1056, bs=128,
 mixup 0.5, 48/192 SpecAugment masks, balanced sampler, weight averaging,
-float32, on the card, through the actual ``python -m psla_tpu_torch.cli``
-subprocess, including a SIGKILL mid-epoch and a ``--resume`` relaunch.
+bfloat16 (as the JAX tool trains), on the card, through the actual
+``python -m psla_tpu_torch.cli`` subprocess, including a SIGKILL mid-epoch
+and a ``--resume`` relaunch.
 The JAX tool's ``--compilation-cache`` has no counterpart: the port
 compiles no programs, and its kernels' build cache (``cuda_build.py``)
 survives the kill.
@@ -24,7 +25,7 @@ Stages:
      (``chip_smoke.py`` phase 6 measures it on the same card); the two
      differ by the host loop, the loader, validation and checkpoints.
 
-``--preflight`` (B0, T=64, float32) checks the tool's own machinery on any
+``--preflight`` (B0, T=64, bfloat16) checks the tool's own machinery on any
 device in minutes; it is not a measurement. ``--synthetic-learnable``
 trains a class-conditional corpus and asserts the accuracy claims.
 
@@ -53,9 +54,8 @@ from psla_tpu_torch.data.wav import write_wav
 from psla_tpu_torch.frontend.fbank import FbankConfig
 
 TARGET_LENGTH = 1056  # frames: every published AudioSet run (run.sh:29)
-DTYPE = "float32"  # bfloat16 training is ROADMAP.md, Queue 1, item 10
-# the toy shape of --preflight (the JAX tool adds --dtype bfloat16,
-# psla_tpu/tools/flagship.py:188,303)
+DTYPE = "bfloat16"  # the run and --preflight, as the JAX tool trains
+# the toy shape of --preflight (psla_tpu/tools/flagship.py:188,303)
 PREFLIGHT_FLAGS = ["--eff_b", "0", "--target_length", "64", "--timem", "24",
                    "--dtype", DTYPE]
 # how often leg 1's log is read for the kill step (the JAX tool's 2 s is

@@ -9,9 +9,8 @@ weight averaging -> post-training protocol -- then checks that every
 expected artifact is in the experiment directory. ``--protocol`` chains
 the whole PSLA protocol loop instead (``run_protocol``).
 
-Both paths train in float32. The JAX tool trains them in bfloat16
-(``psla_tpu/tools/smoke.py:53,145``); bfloat16 training is ROADMAP.md,
-Queue 1, item 10, and these flags switch when it lands.
+Both paths train in bfloat16, as the JAX tool does
+(``psla_tpu/tools/smoke.py:53,145``).
 
     psla-torch-smoke [--epochs 2] [--protocol] [--keep] [--device cuda]
 """
@@ -28,7 +27,7 @@ import tempfile
 import numpy as np
 import torch
 
-DTYPE = "float32"  # bfloat16 training is ROADMAP.md, Queue 1, item 10
+DTYPE = "bfloat16"  # as the JAX tool trains (psla_tpu/tools/smoke.py)
 
 
 def run(epochs: int = 2, exp_root: str | None = None, device: str = "cuda") -> dict:

@@ -170,10 +170,14 @@ class Trainer:
 
     def _new_model(self, seed: int | None = None) -> torch.nn.Module:
         """A module of the configured architecture, freshly initialised
-        from ``seed`` (default: the config's; on the CPU)."""
+        from ``seed`` (default: the config's; on the CPU): its compute
+        ``dtype`` and ``act_compress`` the config's, as the JAX trainer
+        builds its model (training and validation run it); parameters,
+        statistics and so checkpoints stay float32."""
         cfg = self.config
         return create_model(
             cfg.model, label_dim=cfg.n_class, eff_b=cfg.eff_b, head_num=cfg.att_head,
+            dtype=getattr(torch, cfg.dtype), act_compress=cfg.act_compress,
             remat=cfg.remat, bn_momentum=cfg.bn_momentum,
             generator=torch.Generator().manual_seed(cfg.seed if seed is None else seed),
         )

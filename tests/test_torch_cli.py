@@ -1,12 +1,14 @@
 """``psla-torch-train`` (``psla_tpu_torch.cli``) on the CPU: the whole
-protocol through ``run``, an exact resume through ``--resume``, the flags
-of later ROADMAP items, the parser against the JAX package's, and the
-import isolation of the trainer's modules.
+protocol through ``run``, an exact resume through ``--resume``, a bfloat16
+run with int8 activation compression, the flags of later ROADMAP items,
+the parser against the JAX package's, and the import isolation of the
+trainer's modules.
 
 Size: B0, one head, T=128, 4 classes, batch 8, on tests/synth.build_corpus
 (16 one-second tone clips: 2 steps an epoch).
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -17,7 +19,9 @@ import torch
 
 from psla_tpu import cli as jax_cli
 from psla_tpu_torch import cli
-from psla_tpu_torch.models.convert import CHECKPOINT_FILE
+from psla_tpu_torch.models import create_model
+from psla_tpu_torch.models.convert import CHECKPOINT_FILE, load_variables
+from psla_tpu_torch.train import loop
 from tests.synth import build_corpus
 from tests.torch_port_fixtures import tmp_path  # noqa: F401
 
@@ -99,13 +103,52 @@ def test_resume_reproduces_the_uninterrupted_run_exactly(corpus, tmp_path):
 @pytest.mark.parametrize("extra,match", [
     (("--ensemble-seeds", "3", "--num-devices", "2"), "item 6b"),
     (("--ensemble-seeds", "2", "--num-devices", "2"), "item 6b"),
-    (("--act-compress", "qdq"), "item 9"),
-    (("--dtype", "bfloat16"), "item 10"),
 ])
 def test_flags_of_later_items_raise(extra, match):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md, Queue 1, {match}"):
         cli.run(["--data-train", "missing.json", "--device", "cpu",
                  "--impretrain", "False", *extra])
+
+
+@pytest.mark.parametrize("extra", [
+    ("--act-compress", "q8save"),
+    ("--act-compress", "qdq", "--ensemble-seeds", "2"),
+])
+def test_bfloat16_run_writes_float32_checkpoints(corpus, tmp_path, monkeypatch, extra):
+    """``--dtype bfloat16`` with int8 activation compression, on the single
+    and the ensemble trainer: every model the trainer builds is bf16 with
+    the flag's compression, one epoch trains and validates, and the
+    checkpoints stay float32 and load into a float32 model."""
+    built = []
+
+    def recording(*args, **kwargs):
+        built.append((kwargs["dtype"], kwargs["act_compress"]))
+        return create_model(*args, **kwargs)
+
+    monkeypatch.setattr(loop, "create_model", recording)
+    exp = str(tmp_path / "exp")
+    summary = cli.run(argv(corpus, exp, "--n-epochs", "1", "--dtype", "bfloat16",
+                           "--wa", "False", "--data-eval", corpus[0], *extra))
+    assert all(np.isfinite(v) for part in summary.values() for v in part.values())
+    with open(os.path.join(exp, "config.json")) as f:
+        cfg = json.load(f)
+    assert (cfg["dtype"], cfg["act_compress"]) == ("bfloat16", extra[1])
+    assert built and set(built) == {(torch.bfloat16, extra[1])}
+    tag = "best_seed1" if "--ensemble-seeds" in extra else "best"
+    sd = load_variables(os.path.join(exp, "models", tag))
+    assert all(t.dtype == torch.float32 for t in sd.values())
+    model = create_model("efficientnet", label_dim=4, eff_b=0, head_num=1)
+    model.load_state_dict(sd)
+    with torch.inference_mode():
+        probs = model(torch.zeros(2, 128, 128))
+    assert probs.dtype == torch.float32 and bool(torch.isfinite(probs).all())
+
+
+def test_act_compress_is_refused_for_resnet(corpus, tmp_path):
+    """As the JAX package's create_model refuses it."""
+    with pytest.raises(ValueError, match="EfficientNet-only"):
+        cli.run(argv(corpus, str(tmp_path / "exp"), "--model", "resnet", "--act-compress",
+                     "q8save"))
 
 
 def test_compilation_cache_is_refused():

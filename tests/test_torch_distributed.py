@@ -11,7 +11,7 @@ BatchNorm under the JAX package's 2-device mesh (GSPMD).
 Size: EffNetAttention(b=0), T=64, 2 steps with mixup, SpecAugment and
 drop-connect. In float64: 4 heads, 4 classes, global batch 4 (2 a rank),
 from the shared numpy-made variables (tests/torch_port_fixtures.py), and
-the same with ``remat`` on the ranks. In
+the same with ``remat`` on the ranks, and in bfloat16. In
 float32: tests/test_parallel.py's own case (``_setup``: 1 head, 6 classes,
 masks of 4, BatchNorm momentum 0.5, the seeded fan-out init, one noise
 batch of 8 taken twice), on which its bars were set.
@@ -23,7 +23,15 @@ and running statistics within 1e-9; in float32, tests/test_parallel.py's
 1e-5, 99th percentile 1e-4, and the running statistics within 1e-5 (on
 the float64 case the float32 one-process step is itself 3.4e-3 from the
 float64 one, in block 0's ``_bn2.bias``, whose gradient is zero but for the
-padded borders and whose sign Adam turns into a step of lr). The
+padded borders and whose sign Adam turns into a step of lr). In bfloat16
+the two steps part by what bf16 rounding, amplified through the train-mode
+BatchNorms of batch-2 shards, makes of the different sum orders (measured:
+loss 8.6e-3, statistics after step 1 2.3e-2, parameters mean 5.1e-4,
+max 4 lr, Adam's own bound on two steps), held at twice that; those bars
+would pass statistics taken in bf16 too. The stem's running statistics
+after step 1 come before that amplification: within 3e-6 (measured
+1.0e-6; a synced layer that takes its statistics in bf16 misses by
+1.7e-4), and the synced layer itself in bf16 is held bit for bit. The
 synced BatchNorm: the port's layer on the whole batch within 1e-6, flax's
 ``ReferenceBatchNorm`` under GSPMD within 1e-6 plus flax's own distance
 from the float64 layer (tests/test_torch_train.py's bars). The eval gather:
@@ -99,6 +107,7 @@ def _spec(root) -> dict:
                         batches=[jax_batch, jax_batch], heads=1, n_class=6, bn_momentum=0.5,
                         aug=dict(freq_mask=4, time_mask=4, mixup_rate=0.5), lr=LR),
     }
+    cases["bfloat16"] = cases["float64"]
     rng = np.random.default_rng(5)
     c = BN_SHAPE[1]
     bn_x = (rng.normal(0.0, 0.5, (1, c, 1, 1)) + rng.uniform(0.5, 2.0, (1, c, 1, 1))
@@ -125,7 +134,8 @@ def _spec(root) -> dict:
             impretrain=False),
         "validate_dir": str(root / "validate2"),
         "cli_dir": cli_dir,
-        "cli_argv": cli_argv(val_file, label_csv, cli_dir),
+        "cli_argv": cli_argv(val_file, label_csv, cli_dir, "--dtype", "bfloat16",
+                             "--act-compress", "q8save"),
     }
 
 
@@ -161,8 +171,10 @@ def world2(tmp_path_factory):
     mesh = make_mesh(device="cpu")
     one = {
         "batchnorm": worker.batchnorm(spec, mesh),
+        "batchnorm_bf16": worker.batchnorm(spec, mesh, torch.bfloat16),
         "float64": worker.train_steps(spec, mesh, torch.float64),
         "float32": worker.train_steps(spec, mesh, torch.float32),
+        "bfloat16": worker.train_steps(spec, mesh, torch.bfloat16),
         "validate": worker.validate(spec, str(root / "validate1")),
     }
     while not ranks.join():
@@ -216,7 +228,10 @@ def test_step_refuses_a_state_not_on_the_mesh():
         step(state, {"wav": np.zeros((2, 8), np.float32)}, None)
 
 
-@pytest.mark.parametrize("dtype", ["float64", "float32", "float64_remat"])
+STEM_STATS = ("effnet._bn0.running_mean", "effnet._bn0.running_var")
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32", "float64_remat", "bfloat16"])
 def test_train_step_on_two_ranks_matches_one_process(world2, dtype):
     """``float64_remat``: the ranks replay each MBConv block's forward in
     backward (``--remat``), so the synced BatchNorm's forward collective
@@ -241,6 +256,19 @@ def test_train_step_on_two_ranks_matches_one_process(world2, dtype):
     if dtype.startswith("float64"):
         assert loss_diff < 1e-10
         assert diff.max() < 1e-9 and first < 1e-9 and final < 1e-9
+    elif dtype == "bfloat16":
+        # bf16 rounding amplified through train-mode BatchNorms (see the
+        # module docstring): twice the measured, and Adam's own bound on
+        # two steps (each moves a parameter by at most lr on either side)
+        assert loss_diff < 2e-2 and first < 5e-2
+        assert diff.max() <= 4 * LR + 1e-6 and diff.mean() < 1e-3
+        # the stem's statistics come before any synced bf16 output is carried
+        # on: float32 statistics of the same bf16 values on both sides
+        # (measured 1.0e-6; 1.7e-4 with statistics taken in bf16)
+        stem = max((r0["first_stats"][k] - ref["first_stats"][k]).abs().max().item()
+                   for k in STEM_STATS)
+        print(f"bfloat16: the stem's statistics after step 1 {stem:.3g}")
+        assert stem < 3e-6, stem
     else:
         assert loss_diff < 3e-4
         assert diff.max() < 3 * LR and diff.mean() < 1e-5 and np.percentile(diff, 99) < 1e-4
@@ -259,6 +287,27 @@ def test_synced_batchnorm_matches_the_layer_on_the_whole_batch(world2):
         torch.testing.assert_close(torch.cat([x[k] for x in r]), ref[k], rtol=0, atol=1e-6,
                                    msg=k)
     for k in ("dw", "db"):  # each rank's sum; the step averages them
+        torch.testing.assert_close(r[0][k] + r[1][k], ref[k], rtol=0, atol=sum_bar(ref[k]),
+                                   msg=k)
+    for k in ("running_mean", "running_var"):
+        torch.testing.assert_close(r[0][k], r[1][k], rtol=0, atol=0, msg=k)
+        torch.testing.assert_close(r[0][k], ref[k], rtol=0, atol=1e-6, msg=k)
+
+
+def test_synced_batchnorm_in_bfloat16_matches_the_layer(world2):
+    """A bf16 input (``--dtype bfloat16``): the synced layer takes the
+    statistics and the backward sums in float32 and rounds the output and
+    the input gradient once to bf16, as the one-process layer
+    (``F.batch_norm``) does on the whole batch: the output and the input
+    gradient equal to its (measured: bit for bit), the parameter gradients
+    and the running statistics (float32) at the float32 bars above."""
+    _, got, one = world2
+    ref, r = one["batchnorm_bf16"], [g["batchnorm_bf16"] for g in got]
+    for k in ("y", "dx"):
+        both = torch.cat([x[k] for x in r])
+        assert both.dtype == ref[k].dtype == torch.bfloat16, k
+        torch.testing.assert_close(both, ref[k], rtol=0, atol=0, msg=k)
+    for k in ("dw", "db"):
         torch.testing.assert_close(r[0][k] + r[1][k], ref[k], rtol=0, atol=sum_bar(ref[k]),
                                    msg=k)
     for k in ("running_mean", "running_var"):
@@ -335,9 +384,10 @@ def test_eval_gather_returns_the_one_process_rows(world2):
 
 
 def test_cli_run_on_two_ranks_writes_on_rank0_only(world2):
-    """``cli.run`` under a group started beforehand (a launcher's path):
-    it trains, validates and weight-averages; rank 0 writes every file,
-    rank 1 none, and both return the same summary."""
+    """``cli.run`` under a group started beforehand (a launcher's path), in
+    bfloat16 with q8save: it trains, validates and weight-averages; rank 0
+    writes every file, rank 1 none, both return the same summary, and the
+    checkpoints stay float32."""
     spec, got, _ = world2
     exp = spec["cli_dir"]
     assert got[1]["cli"]["written"] == []
@@ -354,6 +404,10 @@ def test_cli_run_on_two_ranks_writes_on_rank0_only(world2):
     ckpt = torch.load(os.path.join(exp, "models", "epoch_1", CHECKPOINT_FILE),
                       weights_only=True)
     assert ckpt["step"] == 2  # 11 clips: 5 a rank, 2 a rank a batch
+    assert all(t.dtype == torch.float32 for t in ckpt["model"].values())
+    with open(os.path.join(exp, "config.json")) as f:
+        cfg = json.load(f)
+    assert (cfg["dtype"], cfg["act_compress"]) == ("bfloat16", "q8save")
 
 
 def test_spawned_train_run(tmp_path, monkeypatch):

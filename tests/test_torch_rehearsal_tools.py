@@ -3,8 +3,8 @@ run and the whole PSLA protocol loop) and ``psla-torch-flagship`` (its
 corpora against the JAX tool's, its log parsing, and the kill-and-resume
 machinery at the preflight shape).
 
-Size: the tools' own toy shapes (EffNet-B0, T=64). Both train in float32
-(bfloat16 training is ROADMAP.md, Queue 1, item 10).
+Size: the tools' own toy shapes (EffNet-B0, T=64). Both train in bfloat16,
+as the JAX tools do.
 """
 
 import filecmp
@@ -37,14 +37,14 @@ def test_smoke_run_writes_the_artifact_set(tmp_path):
         assert np.isfinite(res["summary"][key]["eval_mAP"])
     with open(exp / "config.json") as f:
         cfg = json.load(f)
-    assert (cfg["dtype"], cfg["eff_b"], cfg["target_length"]) == ("float32", 0, 64)
+    assert (cfg["dtype"], cfg["eff_b"], cfg["target_length"]) == ("bfloat16", 0, 64)
     for name in ("epoch_1", "epoch_2", "best", "wa"):
         assert (exp / "models" / name / "checkpoint.pth").exists(), name
 
 
 def test_smoke_passes_its_flags_to_cli_run(tmp_path, monkeypatch):
     """smoke.run calls the library entry (cli.run, which returns the
-    summary) with a corpus, from scratch, in float32, on the given device."""
+    summary) with a corpus, from scratch, in bfloat16, on the given device."""
     calls = {}
 
     def fake_run(argv):
@@ -60,7 +60,7 @@ def test_smoke_passes_its_flags_to_cli_run(tmp_path, monkeypatch):
     res = smoke.run(epochs=2, exp_root=str(tmp_path), device="cuda:1")
     argv = calls["argv"]
     assert res["summary"]["wa"]["eval_mAP"] == 0.9
-    assert argv[argv.index("--dtype") + 1] == "float32"
+    assert argv[argv.index("--dtype") + 1] == "bfloat16"
     assert argv[argv.index("--device") + 1] == "cuda:1"
     assert argv[argv.index("--impretrain") + 1] == "False"
     assert "--data-train" in argv
@@ -168,9 +168,9 @@ def test_flagship_preflight_kills_and_resumes(tmp_path, monkeypatch):
     assert res["bare_step_clips_per_sec"] == 123.0
     assert sorted(res["epoch_clips_per_sec"]) == [1, 2, 3]
     assert res["sustained_clips_per_sec"] > 0 and 0 <= res["data_time_share"] <= 1
-    assert res["shape"]["dtype"] == "float32" and res["shape"]["model"] == "efficientnet-b0"
+    assert res["shape"]["dtype"] == "bfloat16" and res["shape"]["model"] == "efficientnet-b0"
     with open(tmp_path / "exp" / "config.json") as f:
         cfg = json.load(f)
-    assert (cfg["dtype"], cfg["compilation_cache"], cfg["eff_b"]) == ("float32", "", 0)
+    assert (cfg["dtype"], cfg["compilation_cache"], cfg["eff_b"]) == ("bfloat16", "", 0)
     with open(res["log"]) as f:
         assert f.read().count("torch ") >= 2  # two legs

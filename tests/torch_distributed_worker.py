@@ -2,7 +2,7 @@
 
 ``run_rank`` joins a gloo group at a file store and runs every world-2
 check of that file once: the collectives, the synced BatchNorm, the
-data-parallel train step in float64 and float32, the eval gather of
+data-parallel train step in float64, float32 and bfloat16, the eval gather of
 ``Trainer.validate`` and a whole ``cli.run``. It saves its results to
 ``{out_dir}/rank{rank}.pt`` for the tests to read. The functions that take
 a ``mesh`` also compute the one-process references (at world 1) in the test
@@ -30,18 +30,19 @@ from psla_tpu_torch.train.state import create_train_state, replicate_state
 from psla_tpu_torch.train.step import build_train_step, draw_train, step_generator
 
 
-def batchnorm(spec: dict, mesh: Mesh) -> dict:
+def batchnorm(spec: dict, mesh: Mesh, dtype: torch.dtype = torch.float32) -> dict:
     """A train-mode ``BatchNorm`` on this rank's rows of ``spec["bn_x"]``
-    (NCHW), backward from sum(y * bn_g): its output, input gradient,
-    parameter gradients (this rank's sums) and running statistics."""
+    (NCHW) in ``dtype``, backward from sum(y * bn_g): its output, input
+    gradient, parameter gradients (this rank's sums) and running
+    statistics."""
     x, g = (shard_batch({"x": spec[k]}, mesh)["x"] for k in ("bn_x", "bn_g"))
     bn = BatchNorm(x.shape[1])
     bn.load_state_dict(spec["bn_state"])
     bn.train()
     bn.group = mesh.group
-    x = torch.from_numpy(x).requires_grad_()
+    x = torch.from_numpy(x).to(dtype).requires_grad_()
     y = bn(x)
-    (y * torch.from_numpy(g)).sum().backward()
+    (y.float() * torch.from_numpy(g)).sum().backward()
     return {"y": y.detach(), "dx": x.grad, "dw": bn.weight.grad, "db": bn.bias.grad,
             "running_mean": bn.running_mean.clone(), "running_var": bn.running_var.clone()}
 
@@ -51,14 +52,17 @@ def train_steps(spec: dict, mesh: Mesh, dtype: torch.dtype, remat: bool = False)
     ``build_train_step`` on ``mesh``, from the case's weights, in ``dtype``,
     with mixup, SpecAugment and drop-connect (``remat``: each MBConv block's
     forward replayed in backward): each step's losses and the final
-    state_dict, and the running statistics after the first step."""
+    state_dict, and the running statistics after the first step. A
+    bfloat16 model keeps float32 parameters (``--dtype bfloat16``)."""
     case = spec["cases"][str(dtype).removeprefix("torch.")]
     cfg = PreprocessConfig(target_length=spec["T"], **case["aug"])
     model = create_model("efficientnet", label_dim=case["n_class"], eff_b=0,
                          head_num=case["heads"], bn_momentum=case["bn_momentum"], dtype=dtype,
                          remat=remat)
     model.load_state_dict(case["state_dict"])
-    state = create_train_state(model.to(dtype), lambda step: case["lr"], device="cpu")
+    if dtype != torch.bfloat16:
+        model.to(dtype)
+    state = create_train_state(model, lambda step: case["lr"], device="cpu")
     state = replicate_state(state, mesh)
     step = build_train_step(cfg, "BCE", mesh)
     losses, first_stats = [], None
@@ -133,8 +137,10 @@ def run_rank(rank: int, world: int, init_method: str, spec_path: str, out_dir: s
             "gathered_mask": distributed.allgather_host(np.arange(3) < rank + 1),
             "broadcast": distributed.broadcast_floats([rank + 0.5, -rank]),
             "batchnorm": batchnorm(spec, mesh),
+            "batchnorm_bf16": batchnorm(spec, mesh, torch.bfloat16),
             "float64": train_steps(spec, mesh, torch.float64),
             "float32": train_steps(spec, mesh, torch.float32),
+            "bfloat16": train_steps(spec, mesh, torch.bfloat16),
             "float64_remat": train_steps(spec, mesh, torch.float64, remat=True),
             "validate": validate(spec, spec["validate_dir"]),
             "cli": audited_run(spec["cli_argv"], spec["cli_dir"]),
