@@ -184,6 +184,7 @@ class BatchNorm(nn.Module):
             if self.group is None:
                 y = F.batch_norm(x, mean, var, self.weight, self.bias, True,
                                  self.momentum, self.eps)
+                y = _GradInOwnStrides.apply(y)
             else:
                 y, batch_mean, batch_var = SyncBatchNormFn.apply(
                     x, self.weight, self.bias, self.eps, self.group)
@@ -201,6 +202,32 @@ class BatchNorm(nn.Module):
         y = (x.to(mul.dtype) - self.running_mean[:, None, None]) * mul[:, None, None]
         y = y + self.bias[:, None, None]
         return y if self.float_out else y.to(x.dtype)
+
+
+class _GradInOwnStrides(torch.autograd.Function):
+    """The identity, whose backward hands on the gradient in exactly the
+    strides of its input (a copy where they differ, else the gradient
+    itself). ``F.batch_norm``'s train-mode backward on the CPU computes
+    wrong dx, dweight and dbias (off by more than their norm) when the
+    output's gradient is channels-last with a non-canonical stride on a
+    size-1 last dimension, on a contiguous input: what
+    ``EffNetAttention.forward``'s ``mean(dim=2).transpose(1, 2)`` hands
+    back when one time step is left after the last stride (T' = 1, a
+    ``target_length`` of 32 or less). ``g.contiguous(memory_format=...)``
+    would not do: its check ignores size-1 dimensions and can return the
+    odd strides unchanged."""
+
+    @staticmethod
+    def forward(ctx, y):
+        ctx.size, ctx.stride = y.shape, y.stride()
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        if g.stride() == ctx.stride:
+            return g
+        return torch.empty_strided(ctx.size, ctx.stride, dtype=g.dtype,
+                                   device=g.device).copy_(g)
 
 
 def _gather_rows(t: torch.Tensor, group) -> torch.Tensor:
