@@ -4,6 +4,10 @@ Run from the root of a checkout, on a machine with one CUDA card:
 
     python3 chip_smoke.py [--profile]
 
+or on N cards, for the phases that span them (12 and 14 (c)):
+
+    python3 chip_smoke.py --data-parallel N [--rows-only]
+
 Phases, in order (any failure ends the script with a non-zero exit and no
 result line):
 
@@ -171,7 +175,8 @@ result line):
    50 clips a rank, from (a)'s state and draws: the first step held to
    (a)'s at the JAX package's data-parallel bars (tests/test_parallel.py:
    90-100) and the statistics within 1e-5, one launch a rank a step, the
-   timed steps and each rank's peak memory, and the eval step of a global
+   timed steps (1 warm-up and 3 on the shared card, 2 and 10 on N cards)
+   and each rank's peak memory, and the eval step of a global
    batch, gathered, within 1e-5 of the one-process eval step. (c)
    ``psla-torch-train --num-devices 2`` (``cli.run`` in each spawned rank)
    on phase 7's corpus writer: 2 epochs, then 1 and ``--resume`` to 2;
@@ -206,6 +211,30 @@ result line):
    writer: the fbank launches the train steps plus every eval batch, the
    CSVs finite, the float32 wa checkpoint served through
    ``InferenceEngine``.
+14. The one-time-step gradient and ensembles across ranks. (a) Raw
+   ``F.batch_norm`` given a channels-last gradient with an odd stride on a
+   size-1 last dimension ([4, 16, 2, 1], strides (32, 1, 16, 32)) against
+   the same gradient contiguous, for a float32 input (cuDNN) and a bf16
+   input with float32 parameters: the relative errors, which say whether
+   the card shares the CPU's fault (reported); the port's ``BatchNorm``
+   bit for bit in both. The B2 train step at ``--target_length 32`` (one
+   time step after the last stride), batch 100, against the same step with
+   a hook that makes the backbone output's gradient contiguous, cuDNN
+   deterministic: each leaf's gradient within 1e-6 of its norm plus 1e-7 of
+   the whole gradient's. (b) Under gloo with both ranks on
+   cuda:0 (NCCL refuses two ranks on one card): E=2 and E=4 seeds on 2
+   ranks (two rows, E/2 members a rank) from phase 11's seeded weights,
+   one step at batch 50 held to the one-process ensemble step on the same
+   batch and draws at phase 12's bars, E/2 fbank launches a rank (counted);
+   ``psla-torch-train --ensemble-seeds 2 --num-devices 2`` (``cli.run`` in
+   each rank) at the audioset_full preset on phase 7's corpus writer,
+   batch 50, 1 epoch and ``--resume`` to 2: each rank's launches its steps
+   plus its eval batches, only rank 0 writes, the stacked checkpoint holds
+   both seeds; ``tools/ensemble --num-devices 2`` on the run's best members
+   within 1e-5 of one process's. (c) ``--data-parallel N`` (N cards, NCCL,
+   one rank a card; ``--rows-only`` skips phase 12): E=2 on two rows of
+   N/2 cards, each row data-parallel on its own process group, held to the
+   one-process step at phase 12's bars and timed a rank.
 
 The line before the last is a JSON object with one record per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -236,6 +265,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 import torch.multiprocessing
+import torch.nn.functional as F
 
 from psla_tpu_torch import assets, cli
 from psla_tpu_torch.config import from_preset
@@ -263,6 +293,7 @@ from psla_tpu_torch.frontend.pipeline import PreprocessConfig
 from psla_tpu_torch.inference import _chunk_logmel, ensemble_probs, predict_long
 from psla_tpu_torch.models import create_model
 from psla_tpu_torch.models.convert import load_variables
+from psla_tpu_torch.models.layers import BatchNorm
 from psla_tpu_torch.models.pretrained import CKPT_ENV
 from psla_tpu_torch.ops import fused_mbconv, mbconv_vmem
 from psla_tpu_torch.tools import compute_stats as stats_tool
@@ -274,9 +305,12 @@ from psla_tpu_torch.tools import predict as predict_tool
 from psla_tpu_torch.tools import weight_averaging as wa_tool
 from psla_tpu_torch.parallel.ensemble import (
     EnsembleState,
+    ensemble_layout,
     init_ensemble_state,
+    local_members,
     make_ensemble_eval_step,
     make_ensemble_train_step,
+    place_members,
 )
 from psla_tpu_torch.parallel.distributed import allgather_host, maybe_initialize
 from psla_tpu_torch.parallel.mesh import make_mesh, shard_batch
@@ -290,6 +324,7 @@ from psla_tpu_torch.train.step import (
     build_eval_step,
     build_train_step,
     draw_train,
+    step_generator,
 )
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): float32
@@ -2950,6 +2985,14 @@ DP_WORLD = 2
 # lr, mean, 99th percentile) of a data-parallel step against one device's
 DP_LOSS_ATOL, DP_PARAM_LRS, DP_PARAM_MEAN, DP_PARAM_P99 = 3e-4, 3, 1e-5, 1e-4
 DP_EVAL_ATOL = 1e-5  # tests/test_parallel.py:115, the sharded eval step
+# (b)'s timed steps: two processes sharing one card under gloo time the
+# sharing, not scaling, so a few steps do; on N cards the full count
+SHARED_WARM, SHARED_TIMED = 1, 3
+
+
+def dp_timing(backend: str) -> tuple[int, int]:
+    """(warm-up, timed) steps of (b) under ``backend``."""
+    return (SHARED_WARM, SHARED_TIMED) if backend == "gloo" else (WARM_STEPS, TIMED_STEPS)
 
 
 def free_port() -> int:
@@ -3057,9 +3100,11 @@ def dp_world_one(b2: tuple[float, float] | None) -> tuple[int, dict, float, tupl
 def dp_step_rank(rank: int, store: str, root: str, world: int, backend: str):
     """(b) One rank: its share of phase 6's batch through the data-parallel
     step from the same state with the global batch's draws (the first
-    step's fbank launches counted), then 2 warm-up and 10 timed steps, then
-    the eval step on its rows of a batch of 100, gathered."""
+    step's fbank launches counted), then the warm-up and timed steps of
+    ``dp_timing``, then the eval step on its rows of a batch of 100,
+    gathered."""
     join_group(rank, store, world, backend)
+    warm, timed = dp_timing(backend)
     try:
         mesh = make_mesh(device=DEVICE)
         cfg, sd = train_config(), seeded_state_dict(SEEDS[0])
@@ -3075,20 +3120,20 @@ def dp_step_rank(rank: int, store: str, root: str, world: int, backend: str):
         out = {"launches": fbank_cuda.LAUNCHES, "loss": float(metrics["loss"]),
                "state": {k: v.detach().cpu().clone()
                          for k, v in state.model.state_dict().items()}}
-        for _ in range(WARM_STEPS):
+        for _ in range(warm):
             state, _ = step(state, batch, draw_train(gen, state.model, STEP_BATCH, cfg))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         fbank_cuda.LAUNCHES = 0
         events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-                  for _ in range(TIMED_STEPS)]
+                  for _ in range(timed)]
         t0 = time.perf_counter()
         for start, end in events:
             start.record()
             state, metrics = step(state, batch, draw_train(gen, state.model, STEP_BATCH, cfg))
             end.record()
         torch.cuda.synchronize()
-        out.update(wall_ms=(time.perf_counter() - t0) * 1e3 / TIMED_STEPS,
+        out.update(wall_ms=(time.perf_counter() - t0) * 1e3 / timed,
                    device_ms=[a.elapsed_time(b) for a, b in events],
                    peak=torch.cuda.max_memory_allocated(), timed_launches=fbank_cuda.LAUNCHES,
                    last_loss=float(metrics["loss"]))
@@ -3118,6 +3163,7 @@ def dp_world(held: dict, held_loss: float, one: tuple[float, float], world: int,
     cfg = train_config()
     lr = psla_lr_schedule(STEP_LR, STEPS_PER_EPOCH, lrscheduler_start=10,
                           lrscheduler_decay=0.5, warmup=True)(START_STEP)
+    warm, timed = dp_timing(backend)
     r0 = got[0]
     stats = [k for k in held if k.endswith(("running_mean", "running_var"))]
     params = [k for k in held if k not in stats]
@@ -3128,19 +3174,19 @@ def dp_world(held: dict, held_loss: float, one: tuple[float, float], world: int,
     loss_err = abs(r0["loss"] - held_loss)
     print(f"(b) world {world} under {backend} on {where(world, backend)}, global batch "
           f"{STEP_BATCH}, {STEP_BATCH // world} a rank: fbank launches a rank in the held step "
-          f"{[g['launches'] for g in got]}, in {TIMED_STEPS} timed steps "
+          f"{[g['launches'] for g in got]}, in {timed} timed steps "
           f"{[g['timed_launches'] for g in got]}; vs (a)'s step: loss {loss_err:.3e} (bar "
           f"{DP_LOSS_ATOL}), parameters max {diff.max():.3e} (bar {DP_PARAM_LRS * lr}) mean "
           f"{diff.mean():.3e} (bar {DP_PARAM_MEAN}) p99 {np.percentile(diff, 99):.3e} (bar "
           f"{DP_PARAM_P99}), running statistics {stats_err:.3e} (bar {STATS_ATOL}); replicas "
           f"equal")
-    check(all(g["launches"] == 1 and g["timed_launches"] == TIMED_STEPS for g in got),
+    check(all(g["launches"] == 1 and g["timed_launches"] == timed for g in got),
           f"world {world}: not one fbank launch a rank a step")
     check(loss_err <= DP_LOSS_ATOL and diff.max() <= DP_PARAM_LRS * lr
           and diff.mean() <= DP_PARAM_MEAN and np.percentile(diff, 99) <= DP_PARAM_P99
           and stats_err <= STATS_ATOL, f"world-{world} step off (a)'s")
     for rank, g in enumerate(got):
-        print(f"(b) rank {rank}: {TIMED_STEPS} steps after {WARM_STEPS}: wall "
+        print(f"(b) rank {rank}: {timed} steps after {warm}: wall "
               f"{g['wall_ms']:.2f} ms/step ({STEP_BATCH / g['wall_ms'] * 1e3:.1f} clips/s of "
               f"the global batch), device {np.mean(g['device_ms']):.2f} ms/step by CUDA "
               f"events (with the waits on the other ranks); peak memory "
@@ -3597,6 +3643,386 @@ def bf16_phase(f32: tuple[float, float], profile: bool) -> dict:
     return {"launches_bf16_step": 1, "launches_bf16_trainer_run": trainer_launches}
 
 
+# ---------------------------------------------------------------- phase 14
+
+# (a) Train-mode BatchNorm given a gradient in odd strides (ROADMAP Queue 3
+# item 12): on the CPU, F.batch_norm's backward is wrong for a channels-last
+# gradient with a non-canonical stride on a size-1 last dimension, which
+# EffNetAttention's pooling hands back at T' = 1; models/layers.BatchNorm
+# passes its gradient on in its output's own strides.
+BN_SHAPE, BN_ODD_STRIDES = (4, 16, 2, 1), (32, 1, 16, 32)
+ONE_STEP_TARGET = 32  # frames: one time step left after the last stride
+# each leaf's gradient within 1e-6 of its norm plus 1e-7 of the whole
+# gradient's (tests/test_torch_qsave.py's bars): a leaf whose gradient is
+# zero but for rounding (a bias that a train-mode BatchNorm follows) has no
+# relative bar of its own
+ONE_STEP_GRAD_RTOL, ONE_STEP_GRAD_FLOOR = 1e-6, 1e-7
+# (b) and (c) Ensembles across ranks: E seeds on W ranks, ensemble_layout's
+# rows. The held steps run at batch 50 (two ranks share the card in (b)).
+ROWS_BATCH = 50
+
+
+def odd_strided(g: torch.Tensor) -> torch.Tensor:
+    return torch.empty_strided(g.shape, BN_ODD_STRIDES, dtype=g.dtype,
+                               device=g.device).copy_(g)
+
+
+def batchnorm_grads(x: torch.Tensor, g: torch.Tensor, port: bool) -> list[torch.Tensor]:
+    """y, dx, dweight and dbias of a train-mode batch normalization of ``x``
+    (float32 weight and bias) backward from ``g``: raw ``F.batch_norm``, or
+    the port's ``BatchNorm``."""
+    c = x.shape[1]
+    x = x.clone().requires_grad_()
+    weight = torch.linspace(0.5, 1.5, c, device=x.device)
+    bias = torch.linspace(-0.1, 0.1, c, device=x.device)
+    if port:
+        bn = BatchNorm(c).to(x.device).train()
+        with torch.no_grad():
+            bn.weight.copy_(weight)
+            bn.bias.copy_(bias)
+        weight, bias = bn.weight, bn.bias
+        y = bn(x)
+    else:
+        weight.requires_grad_()
+        bias.requires_grad_()
+        y = F.batch_norm(x, torch.zeros(c, device=x.device), torch.ones(c, device=x.device),
+                         weight, bias, True, 0.01, 1e-3)
+    y.backward(g)
+    return [y.detach(), x.grad, weight.grad, bias.grad]
+
+
+def leaf_grads(state) -> dict[str, torch.Tensor]:
+    return {k: p.grad.detach().double().clone() for k, p in state.model.named_parameters()}
+
+
+def batchnorm_strides() -> int:
+    """(a) Raw ``F.batch_norm`` under the odd strides against the same
+    gradient made contiguous, for a float32 input (cuDNN) and a bf16 input
+    with float32 parameters (PyTorch's own kernels): reported. The port's
+    BatchNorm: bit for bit in both. Then the B2 train step at
+    ``--target_length 32`` against the same step with the backbone output's
+    gradient made contiguous by a hook (cuDNN deterministic for both):
+    each leaf's gradient within ``ONE_STEP_GRAD_RTOL`` of its norm plus
+    ``ONE_STEP_GRAD_FLOOR`` of the whole gradient's. Returns the held step's
+    fbank launches."""
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    x32 = torch.randn(BN_SHAPE, generator=gen, device=DEVICE)
+    g32 = torch.randn(BN_SHAPE, generator=gen, device=DEVICE)
+    for dtype in (torch.float32, torch.bfloat16):
+        x, g = x32.to(dtype), g32.to(dtype)
+        want, got = (batchnorm_grads(x, h, port=False) for h in (g, odd_strided(g)))
+        rel = [float((a.double() - b.double()).norm() / b.double().norm())
+               for a, b in zip(got[1:], want[1:])]
+        port = [batchnorm_grads(x, h, port=True) for h in (g, odd_strided(g))]
+        equal = all(torch.equal(a, b) for a, b in zip(*port))
+        print(f"(a) raw F.batch_norm on the card, {dtype} input, float32 parameters, "
+              f"{list(BN_SHAPE)} with gradient strides {BN_ODD_STRIDES} vs contiguous: "
+              f"relative error dx {rel[0]:.3e}, dweight {rel[1]:.3e}, dbias {rel[2]:.3e} "
+              f"({'shares' if max(rel) > 1e-3 else 'does not share'} the CPU's fault); the "
+              f"port's BatchNorm bit-equal: {equal}")
+        check(equal, f"the port's BatchNorm in {dtype} depends on its gradient's strides")
+
+    cfg = PreprocessConfig(fbank=FbankConfig(precision="high"), target_length=ONE_STEP_TARGET,
+                           freq_mask=48, time_mask=8, mixup_rate=0.5)
+    batch = train_batch(cfg, seed=13)
+    sd = seeded_state_dict(SEEDS[0])
+    step = build_train_step(cfg)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        launches, grads = {}, {}
+        for name in ("hooked", "as is"):
+            state = train_state(sd)
+            if name == "hooked":
+                def contiguous(module, args, out):
+                    out.register_hook(lambda g: g.clone(memory_format=torch.contiguous_format))
+
+                state.model.effnet.register_forward_hook(contiguous)
+            draws = draw_train(torch.Generator(device=DEVICE).manual_seed(0), state.model,
+                               STEP_BATCH, cfg)
+            torch.cuda.synchronize()
+            fbank_cuda.LAUNCHES = 0
+            state, _ = step(state, batch, draws)
+            torch.cuda.synchronize()
+            launches[name] = fbank_cuda.LAUNCHES
+            grads[name] = leaf_grads(state)
+            del state
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    want = grads["hooked"]
+    whole = float(torch.sqrt(sum((g ** 2).sum() for g in want.values())))
+    off = {k: float((grads["as is"][k] - want[k]).norm()) for k in want}
+    used = max(off[k] / (ONE_STEP_GRAD_RTOL * float(want[k].norm())
+                         + ONE_STEP_GRAD_FLOOR * whole) for k in want)
+    own = max(off[k] / max(float(want[k].norm()), 1e-300) for k in want)
+    equal = all(torch.equal(grads["as is"][k], want[k]) for k in want)
+    print(f"(a) B{EFF_B} train step at --target_length {ONE_STEP_TARGET} (T' = 1), batch "
+          f"{STEP_BATCH}: fbank launches {launches['as is']}; each leaf's gradient vs the step "
+          f"with the backbone output's gradient made contiguous: largest share of its bar "
+          f"({ONE_STEP_GRAD_RTOL} of the leaf's norm + {ONE_STEP_GRAD_FLOOR} of the whole "
+          f"gradient's) {used:.3e}, of the leaf's own norm {own:.3e}; bit-equal: {equal}")
+    check(launches["as is"] == 1, f"{launches['as is']} fbank launches in the T'=1 step")
+    check(used <= 1.0, f"T'=1 gradients off by {used} of their bar")
+    return launches["as is"]
+
+
+def one_process_ensemble(seeds: int, cfg: PreprocessConfig, batch: dict) -> dict:
+    """The one-process ensemble step at ``seeds`` members from phase 11's
+    seeded weights, each drawing from ``step_generator(0, START_STEP,
+    member=i)``: the seed losses and each member's state on the host. A
+    member's step reads no other member, so the first E of them are the
+    E-member step's."""
+    state = EnsembleState([train_state(seeded_state_dict(s)) for s in ENSEMBLE_SEEDS[:seeds]])
+    draws = [draw_train(step_generator(0, START_STEP, DEVICE, member=i),
+                        state.members[0].model, len(batch["wav"]), cfg) for i in range(seeds)]
+    state, metrics = make_ensemble_train_step(cfg)(state, batch, draws)
+    return {"seed_loss": metrics["seed_loss"].cpu(),
+            "members": [{k: v.detach().cpu().clone() for k, v in m.model.state_dict().items()}
+                        for m in state.members]}
+
+
+def rows_steps_rank(world: int, seed_counts: list[int], timed: int) -> dict:
+    """This rank's part of (b) or (c): for each E in ``seed_counts``, its
+    row's members from phase 11's seeded weights placed on the row, one
+    step of its share of the batch (the fbank launches counted: E_local),
+    then ``timed`` steps timed after WARM_STEPS."""
+    cfg = train_config()
+    out = {}
+    for seeds in seed_counts:
+        rows = ensemble_layout(seeds, world, dist.get_rank(), world)[0]
+        mesh = make_mesh(device=DEVICE, ensemble=rows)
+        members = local_members(seeds, mesh)
+        state = place_members(EnsembleState(
+            [train_state(seeded_state_dict(ENSEMBLE_SEEDS[i])) for i in members], mesh))
+        step = make_ensemble_train_step(cfg, "BCE", mesh)
+        batch = shard_batch(train_batch(cfg, batch=ROWS_BATCH), mesh)
+
+        def draws():
+            return [draw_train(step_generator(0, state.step, DEVICE, member=i),
+                               state.members[0].model, ROWS_BATCH, cfg) for i in members]
+
+        torch.cuda.synchronize()
+        fbank_cuda.LAUNCHES = 0
+        state, metrics = step(state, batch, draws())
+        torch.cuda.synchronize()
+        got = {"launches": fbank_cuda.LAUNCHES, "members": list(members), "row": mesh.row,
+               "seed_loss": metrics["seed_loss"].cpu(),
+               "state": [{k: v.detach().cpu().clone() for k, v in m.model.state_dict().items()}
+                         for m in state.members]}
+        if timed:
+            for _ in range(WARM_STEPS):
+                state, _ = step(state, batch, draws())
+            events = [(torch.cuda.Event(enable_timing=True),
+                       torch.cuda.Event(enable_timing=True)) for _ in range(timed)]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            for start, end in events:
+                start.record()
+                state, metrics = step(state, batch, draws())
+                end.record()
+            torch.cuda.synchronize()
+            got.update(wall_ms=(time.perf_counter() - t0) * 1e3 / timed,
+                       device_ms=[a.elapsed_time(b) for a, b in events],
+                       peak=torch.cuda.max_memory_allocated())
+        out[seeds] = got
+        del state
+        torch.cuda.empty_cache()
+    return out
+
+
+def rows_cli_rank(root: str, base: list[str], tool: list[str]) -> dict:
+    """This rank's part of (b)'s tools: ``cli.run --ensemble-seeds 2
+    --num-devices 2`` for 1 epoch, then ``--resume`` to 2, then
+    ``tools/ensemble --num-devices 2`` on the run's best members: each
+    one's fbank launches (set to 0 just before, read just after) and the
+    files it wrote."""
+    out = {}
+    runs = (("first", lambda: cli.run(base + ["--n-epochs", "1"])),
+            ("resumed", lambda: cli.run(base + ["--n-epochs", "2", "--resume"])),
+            ("tool", lambda: ensemble_tool.run(tool)))
+    for name, fn in runs:
+        torch.cuda.synchronize()
+        fbank_cuda.LAUNCHES = 0
+        t0 = time.perf_counter()
+        result, written = audited(fn, root)
+        torch.cuda.synchronize()
+        out[name] = {"launches": fbank_cuda.LAUNCHES, "wall": time.perf_counter() - t0,
+                     "written": written, "result": result}
+    return out
+
+
+def rows_rank(rank: int, store: str, root: str, world: int, backend: str,
+              seed_counts: list[int], timed: int, base: list[str] | None,
+              tool: list[str] | None):
+    """One rank of (b) or (c): the held steps, then (with ``base``) the
+    trainer and the ensemble tool; its results in ``{root}/rank{rank}.pt``."""
+    join_group(rank, store, world, backend)
+    try:
+        out = {"steps": rows_steps_rank(world, seed_counts, timed)}
+        if base:
+            out["cli"] = rows_cli_rank(root, base, tool)
+        torch.save(out, os.path.join(root, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def rows_steps(got: list[dict], ref: dict, world: int, backend: str, timed: int) -> list[int]:
+    """(b)/(c) Each E of the ranks' held steps against the one-process
+    ensemble step on the same batch and draws (``ref``: E -> its seed
+    losses and members) at phase 12's bars: every seed's loss, each
+    member's parameters and running statistics; each member's replicas in
+    a row equal; E_local fbank launches a rank. Returns each rank's
+    launches in its held steps."""
+    lr = psla_lr_schedule(STEP_LR, STEPS_PER_EPOCH, lrscheduler_start=10,
+                          lrscheduler_decay=0.5, warmup=True)(START_STEP)
+    launches = []
+    for seeds, want in ref.items():
+        rows, _, per_row = ensemble_layout(seeds, world, 0, world)
+        steps = [g["steps"][seeds] for g in got]
+        loss_err = max(float((r["seed_loss"] - want["seed_loss"]).abs().max()) for r in steps)
+        diffs, stats_err = [], 0.0
+        for rank, r in enumerate(steps):
+            first = steps[rank - rank % per_row]
+            check(all(torch.equal(a[k], b[k]) for a, b in zip(r["state"], first["state"])
+                      for k in a), f"E={seeds}: rank {rank}'s replicas differ from its row's")
+            for i, member in zip(r["members"], r["state"]):
+                stats = [k for k in member if k.endswith(("running_mean", "running_var"))]
+                params = [k for k in member if k not in stats]
+                diffs.append(param_diffs(member, want["members"][i], params))
+                stats_err = max(stats_err, max_diff(member, want["members"][i], stats))
+        diff = np.concatenate(diffs)
+        counts = [r["launches"] for r in steps]
+        launches += counts
+        e_local = seeds // rows
+        print(f"(b/c) E={seeds} on {world} ranks under {backend} ({where(world, backend)}): "
+              f"{rows} row(s) of {per_row} rank(s), {e_local} member(s) a rank, batch "
+              f"{ROWS_BATCH} ({ROWS_BATCH // per_row} a rank); fbank launches a rank "
+              f"{counts}; vs the one-process ensemble step: seed losses {loss_err:.3e} (bar "
+              f"{DP_LOSS_ATOL}), parameters max {diff.max():.3e} (bar {DP_PARAM_LRS * lr}) "
+              f"mean {diff.mean():.3e} (bar {DP_PARAM_MEAN}) p99 "
+              f"{np.percentile(diff, 99):.3e} (bar {DP_PARAM_P99}), running statistics "
+              f"{stats_err:.3e} (bar {STATS_ATOL}); replicas equal")
+        check(counts == [e_local] * world, f"E={seeds}: fbank launches {counts}")
+        check(loss_err <= DP_LOSS_ATOL and diff.max() <= DP_PARAM_LRS * lr
+              and diff.mean() <= DP_PARAM_MEAN and np.percentile(diff, 99) <= DP_PARAM_P99
+              and stats_err <= STATS_ATOL, f"E={seeds} on {world} ranks off one process's")
+        for rank, r in enumerate(steps if timed else []):
+            print(f"(b/c) E={seeds}, rank {rank} (row {r['row']}): {timed} steps after "
+                  f"{WARM_STEPS}: device {np.mean(r['device_ms']):.2f} ms/step (CUDA events, "
+                  f"with the waits on the other ranks; {min(r['device_ms']):.2f}-"
+                  f"{max(r['device_ms']):.2f}), wall {r['wall_ms']:.2f} ms/step "
+                  f"({ROWS_BATCH / r['wall_ms'] * 1e3:.1f} clips/s of the shared stream), peak "
+                  f"{r['peak'] / 2**30:.2f} GiB ({card()})")
+    return launches
+
+
+def rows_cli(got: list[dict], root: str, exp: str, tool: list[str]) -> dict:
+    """(b) ``psla-torch-train --ensemble-seeds 2 --num-devices 2`` at the
+    audioset_full preset on phase 7's corpus, global batch 50 (each rank
+    trains its member on the whole batch): its fbank launches its steps
+    plus its eval batches, only rank 0 writes, the stacked checkpoint
+    holds both seeds; ``tools/ensemble --num-devices 2`` within 1e-5 of
+    one process's. Returns the launches."""
+    world = len(got)
+    spe, vb = TRAIN_CLIPS // ROWS_BATCH, -(-VAL_CLIPS // ROWS_BATCH)
+    shard = -(-VAL_CLIPS // world)  # the tool's rows a rank, in batches of ROWS_BATCH / W
+    # a member's steps, the epoch's validation and weight averaging's
+    want = {"first": spe + 2 * vb, "resumed": spe + 2 * vb,
+            "tool": -(-shard // (ROWS_BATCH // world))}
+    runs = [g["cli"] for g in got]
+    for rank, g in enumerate(runs):
+        counts = {name: g[name]["launches"] for name in want}
+        print(f"(b) rank {rank}: cli.run --ensemble-seeds 2 --num-devices {world} (gloo, "
+              f"{where(world, 'gloo')}): {spe} steps an epoch of {ROWS_BATCH} clips (its "
+              f"member on the whole batch), fbank launches {counts} (want {want}); 1 epoch "
+              f"{g['first']['wall']:.1f} s, resumed epoch 2 {g['resumed']['wall']:.1f} s, "
+              f"tools/ensemble {g['tool']['wall']:.1f} s ({card()})")
+        check(counts == want, f"rank {rank}: fbank launches {counts}, want {want}")
+    check(not any(g[name]["written"] for g in runs[1:] for name in want),
+          f"rank 1 wrote {[runs[1][n]['written'] for n in want]}")
+    written = set(runs[0]["first"]["written"])
+    for name in ("exp/result.csv", "exp/seed_result.csv.tmp",
+                 "exp/predictions/predictions_1_seed1.csv",
+                 "exp/models/epoch_1/checkpoint.pth.tmp",
+                 "exp/models/best_seed1/checkpoint.pth.tmp"):
+        check(name in written, f"rank 0 did not write {name}")
+    ckpt = torch.load(os.path.join(exp, "models", "epoch_2", "checkpoint.pth"),
+                      map_location="cpu", weights_only=True)
+    check(ckpt["seeds"] == 2 and ckpt["step"] == 2 * spe and len(ckpt["optimizer"]) == 2
+          and all(v.shape[0] == 2 for v in ckpt["model"].values()),
+          f"stacked epoch_2: seeds {ckpt['seeds']}, step {ckpt['step']}")
+    result = np.loadtxt(os.path.join(exp, "result.csv"), delimiter=",")
+    check(result.shape == (2, 10) and bool(np.all(np.isfinite(result))), f"result {result}")
+    check(runs[0]["resumed"]["result"] == runs[1]["resumed"]["result"],
+          "the ranks' summaries differ")
+    one = ensemble_tool.run(tool + ["--out-dir", os.path.join(root, "tool_one")])
+    errs = [float(np.abs(
+        np.loadtxt(os.path.join(root, "tool_ranks", f"predictions_{i}.csv"), delimiter=",")
+        - np.loadtxt(os.path.join(root, "tool_one", f"predictions_{i}.csv"), delimiter=",")
+    ).max()) for i in range(2)]
+    print(f"(b) files written: rank 0 {len(written)} in the first run, rank 1 none; the "
+          f"stacked epoch_2 checkpoint holds 2 seeds at step {ckpt['step']}; tools/ensemble "
+          f"on 2 ranks vs one process: predictions {errs} (bar {ENSEMBLE_ATOL}), mAP "
+          f"{runs[0]['tool']['result']['ensemble']['mAP']:.4f} vs {one['ensemble']['mAP']:.4f}")
+    check(max(errs) <= ENSEMBLE_ATOL, f"tools/ensemble on 2 ranks off by {errs}")
+    return {"launches_rows_trainer_run_per_rank": [g["first"]["launches"] for g in runs],
+            "launches_rows_tool_per_rank": [g["tool"]["launches"] for g in runs]}
+
+
+def rows_phase(world: int | None = None) -> dict:
+    """Phase 14: (a) the T'=1 gradient; (b) ensembles across 2 ranks under
+    gloo on one card: E=2 and E=4 held to one process, the trainer and its
+    resume, the ensemble tool, all in one spawn. With ``world``
+    (``--data-parallel N``): (c) alone, E=2 on N ranks under NCCL, one a
+    card, rows of N / 2, timed. Returns the fbank kernel's launches on its
+    paths."""
+    t_phase = time.perf_counter()
+    cfg = train_config()
+    batch = train_batch(cfg, batch=ROWS_BATCH)
+    if world:
+        ref = {2: one_process_ensemble(2, cfg, batch)}
+        torch.cuda.empty_cache()
+        root = tempfile.mkdtemp(prefix="psla_rows_")
+        try:
+            got = spawn_ranks(rows_rank, root, world, "nccl", [2], TIMED_STEPS, None, None)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        out = {"launches_rows_step_per_rank": rows_steps(got, ref, world, "nccl",
+                                                         TIMED_STEPS)}
+        print(f"phase 14 (c): {time.perf_counter() - t_phase:.1f} s; fbank launches {out}")
+        return out
+    out = {"launches_t1_step": batchnorm_strides()}
+    four = one_process_ensemble(4, cfg, batch)
+    ref = {e: {"seed_loss": four["seed_loss"][:e], "members": four["members"][:e]}
+           for e in (2, 4)}
+    torch.cuda.empty_cache()
+    world = 2
+    root = tempfile.mkdtemp(prefix="psla_rows_")
+    try:
+        train_json, val_json, _ = write_corpus(root)
+        exp = os.path.join(root, "exp")
+        base = ["--preset", "audioset_full", "--data-train", train_json, "--data-val",
+                val_json, "--label-csv", assets.label_csv_for("audioset"), "--exp-dir", exp,
+                "--impretrain", "False", "--warmup", "False", "--wa_start", "1", "--wa_end",
+                "2", "--eff_b", str(EFF_B), "--target_length", str(TARGET), "-b",
+                str(ROWS_BATCH), "--ensemble-seeds", "2", "--num-devices", str(world),
+                "--device", DEVICE]
+        tool = [*(os.path.join(exp, "models", f"best_seed{i}") for i in range(2)),
+                "--data-eval", val_json, "--label-csv", assets.label_csv_for("audioset"),
+                "--eff_b", str(EFF_B), "--n_class", str(N_CLASS), "--target_length",
+                str(TARGET), "--batch-size", str(ROWS_BATCH), "--device", DEVICE]
+        got = spawn_ranks(rows_rank, root, world, "gloo", [2, 4], 0, base,
+                          tool + ["--out-dir", os.path.join(root, "tool_ranks"),
+                                  "--num-devices", str(world)])
+        out["launches_rows_step_per_rank"] = rows_steps(got, ref, world, "gloo", 0)
+        out.update(rows_cli(got, root, exp, tool))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"phase 14: {time.perf_counter() - t_phase:.1f} s; fbank launches {out}")
+    return out
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -3606,8 +4032,10 @@ def main(argv=None) -> int:
                    help="also print device time by kernel for one dispatch and one "
                         "train step")
     p.add_argument("--data-parallel", type=int, default=None, metavar="N",
-                   help="run phase 12 alone on N cards under NCCL, one rank a card, "
-                        "held to the one-process step on one card")
+                   help="run phases 12 and 14 (c) alone on N cards under NCCL, one rank "
+                        "a card, held to the one-process step on one card")
+    p.add_argument("--rows-only", action="store_true",
+                   help="with --data-parallel N, run phase 14 (c) alone")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -3619,7 +4047,10 @@ def main(argv=None) -> int:
         cards = torch.cuda.device_count()
         check(cards >= args.data_parallel, f"{cards} cards for --data-parallel "
                                            f"{args.data_parallel}")
-        dp_phase(None, args.data_parallel, "nccl")
+        if not args.rows_only:
+            dp_phase(None, args.data_parallel, "nccl")
+            torch.cuda.empty_cache()
+        rows_phase(args.data_parallel)
         print(f"total {time.perf_counter() - t0:.1f} s")
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": cards}}))
@@ -3645,6 +4076,8 @@ def main(argv=None) -> int:
     record.update(dp_phase((step_ms, step_clips_s)))
     torch.cuda.empty_cache()
     record.update(bf16_phase((step_ms, step_clips_s), args.profile))
+    torch.cuda.empty_cache()
+    record.update(rows_phase())
     for r in records:
         check(r["launches"] > 0, f"kernel {r['name']} was not launched on its path")
     print(f"total {time.perf_counter() - t0:.1f} s")

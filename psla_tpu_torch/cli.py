@@ -7,11 +7,15 @@ flag overriding it. ``--device`` picks the card (the default, ``cuda``) or
 ``cpu``. Flags whose code the port has not yet refuse with their ROADMAP
 item (``config.unported``).
 
-Several ranks (data parallelism, one card each): under a launcher
-(``torchrun --nproc_per_node N -m psla_tpu_torch.cli ...``) the group comes
-from its environment; otherwise ``--num-devices N`` spawns N ranks on this
-host (NCCL on the cards, gloo with ``--device cpu``). ``--batch-size`` is
-the global batch either way: each rank loads batch_size / N rows.
+Several ranks (one card each): under a launcher (``torchrun
+--nproc_per_node N -m psla_tpu_torch.cli ...``) the group comes from its
+environment; otherwise ``--num-devices N`` spawns N ranks on this host
+(NCCL on the cards, gloo with ``--device cpu``). ``--batch-size`` is the
+global batch either way: each rank loads batch_size / N rows, or with
+``--ensemble-seeds E`` batch_size / R, where R is the ranks of an ensemble
+row (``parallel.ensemble.ensemble_layout``: the N ranks split into
+gcd(E, N) rows, each training its E / gcd(E, N) members data-parallel
+over its R = N / gcd(E, N) ranks on the same batches as every other row).
 
 Example:
     psla-torch-train --preset audioset_full \\
@@ -23,20 +27,16 @@ from __future__ import annotations
 import argparse
 import ast
 import dataclasses
-import json
-import os
 import sys
-import tempfile
 
 import torch
-import torch.distributed as dist
-import torch.multiprocessing
 
 from psla_tpu_torch.config import PRESETS, ExperimentConfig, unported
 from psla_tpu_torch.data.datafiles import load_datafile
 from psla_tpu_torch.data.loader import AudioLoader, LoaderConfig
 from psla_tpu_torch.data.sampler import compute_sample_weights
-from psla_tpu_torch.parallel.distributed import maybe_initialize, process_info
+from psla_tpu_torch.parallel.distributed import maybe_initialize, process_info, spawn
+from psla_tpu_torch.parallel.ensemble import ensemble_layout
 from psla_tpu_torch.train.ensemble_loop import EnsembleTrainer
 from psla_tpu_torch.train.loop import Trainer
 from psla_tpu_torch.train.protocol import post_training_summary
@@ -104,9 +104,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="ranks of data parallelism, one card each: under torchrun its world "
                         "size (the default), else N > 1 spawns N ranks on this host")
     p.add_argument("--ensemble-seeds", type=int, default=None,
-                   help="train this many seeds in lockstep on the card (seed, seed + 1, "
-                        "...; a shared data stream, per-seed draws) and report their "
-                        "mean (EnsembleTrainer)")
+                   help="train this many seeds in lockstep (seed, seed + 1, ...; a shared "
+                        "data stream, per-seed draws) and report their mean "
+                        "(EnsembleTrainer); on several ranks the members are spread "
+                        "over rows of ranks")
     p.add_argument("--fbank-method", choices=["auto", "fft", "gemm", "pallas"], default=None,
                    help="'auto' and 'pallas' take the CUDA fbank kernel on the card")
     p.add_argument("--fbank-precision", choices=["highest", "high", "default"], default=None,
@@ -146,11 +147,19 @@ def config_from_args(args) -> ExperimentConfig:
 def make_loaders(cfg: ExperimentConfig):
     """The train, val and (with ``data_eval``) eval loaders of this rank:
     its shard of each set, ``batch_size / world`` rows a batch
-    (``batch_size`` is the global batch)."""
+    (``batch_size`` is the global batch). An ensemble on several ranks
+    (``ensemble_seeds`` > 1) replicates the batch over its rows, so a rank
+    feeds its position within its row, ``batch_size / ranks a row`` rows a
+    batch, and ranks at the same position in different rows load the same
+    rows (JAX ``psla_tpu/cli.py`` remaps the same way)."""
     rank, world = process_info()
+    what = f"the {world} ranks"
+    if cfg.ensemble_seeds > 1 and world > 1:
+        _, rank, world = ensemble_layout(cfg.ensemble_seeds, world, rank, world)
+        what = f"the {world} ranks of an ensemble row"
     if cfg.batch_size % world:
         raise ValueError(f"--batch-size {cfg.batch_size} is the global batch and is not "
-                         f"divisible by the {world} ranks")
+                         f"divisible by {what}")
     batch = cfg.batch_size // world
     pre = cfg.preprocess_config()
     buf = pre.fbank.buffer_length(cfg.target_length)
@@ -188,45 +197,10 @@ def make_loaders(cfg: ExperimentConfig):
     return train_loader, val_loader, eval_loader
 
 
-def _rank_main(rank: int, world: int, init_method: str, device: str, argv: list[str],
-               summary_path: str):
-    """One spawned rank: join the group, run, and (rank 0) write the summary.
-    The ranks share the host's cores: each takes its share of the intra-op
-    threads a process would take alone (``OMP_NUM_THREADS``, else the
-    cores)."""
-    torch.set_num_threads(max(1, torch.get_num_threads() // world))
-    maybe_initialize(rank=rank, world_size=world, init_method=init_method,
-                     local_rank=rank, device=device)
-    try:
-        summary = run(argv)
-        if rank == 0:
-            with open(summary_path, "w") as f:
-                json.dump(summary, f)
-    finally:
-        dist.destroy_process_group()
-
-
-def _spawn(argv: list[str], world: int, device: str) -> dict:
-    """``run(argv)`` on ``world`` ranks spawned on this host (one card each),
-    meeting at a file store; rank 0's summary. A rank that fails fails the
-    run (``torch.multiprocessing.spawn`` stops the others and raises)."""
-    if torch.device(device).type == "cuda" and world > torch.cuda.device_count():
-        raise ValueError(f"requested num_devices={world} but only "
-                         f"{torch.cuda.device_count()} devices are visible")
-    with tempfile.TemporaryDirectory() as tmp:
-        summary_path = os.path.join(tmp, "summary.json")
-        torch.multiprocessing.spawn(
-            _rank_main, nprocs=world, join=True,
-            args=(world, "file://" + os.path.join(tmp, "store"), device, argv,
-                  summary_path))
-        with open(summary_path) as f:
-            return json.load(f)
-
-
 def run(argv=None) -> dict:
     """Library entry: parse, train, and return the post-training summary.
     Joins the launcher's process group if there is one; ``--num-devices
-    N`` > 1 without one spawns N ranks (``_spawn``)."""
+    N`` > 1 without one spawns N ranks (``parallel.distributed.spawn``)."""
     argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
     maybe_initialize(device=args.device)
@@ -234,7 +208,7 @@ def run(argv=None) -> dict:
     unported(cfg)
     world = process_info()[1]
     if world == 1 and (cfg.num_devices or 1) > 1:
-        return _spawn(argv, cfg.num_devices, args.device)
+        return spawn(run, argv, cfg.num_devices, args.device)
     if cfg.num_devices is not None and cfg.num_devices != world:
         raise ValueError(f"--num-devices {cfg.num_devices} under a launcher's "
                          f"{world}-rank group: leave it out or give {world}")

@@ -8,8 +8,8 @@ reference quirks kept from the JAX package: ``weight_decay`` and ``noise``
 are honored (the reference ignores both flags), and ``att_head`` values
 other than 4 take effect.
 
-Some fields name work the port has not done yet; ``unported`` lists the
-values it refuses, each with its ROADMAP item.
+``unported`` refuses the one field that has no PyTorch meaning,
+``compilation_cache``.
 """
 
 from __future__ import annotations
@@ -20,7 +20,6 @@ from typing import Optional
 
 from psla_tpu_torch.frontend.fbank import FbankConfig
 from psla_tpu_torch.frontend.pipeline import PreprocessConfig
-from psla_tpu_torch.parallel.distributed import process_info
 
 
 @dataclasses.dataclass
@@ -143,17 +142,7 @@ class ExperimentConfig:
 
 
 def unported(cfg: ExperimentConfig):
-    """Raise for a setting whose code the port does not have yet, naming
-    its ROADMAP item."""
-    ranks = max(cfg.num_devices or 1, process_info()[1])
-    later = (
-        (cfg.ensemble_seeds > 1 and ranks > 1, "--ensemble-seeds over 1 on several ranks",
-         "item 6b (ensembles across cards)"),
-    )
-    for refused, what, item in later:
-        if refused:
-            raise NotImplementedError(
-                f"{what} is not ported yet: ROADMAP.md, Queue 1, {item}")
+    """Raise for a setting the port refuses: the JAX package's XLA cache."""
     if cfg.compilation_cache:
         raise ValueError(
             "--compilation_cache is the JAX package's persistent XLA cache and has no "

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from psla_tpu_torch.ops.qsave import DwConvQ8Save, qdq
+from psla_tpu_torch.parallel.distributed import gather_rows
 
 BN_EPS = 1e-3
 # torch's momentum convention (running = (1 - m) * running + m * batch):
@@ -230,17 +231,6 @@ class _GradInOwnStrides(torch.autograd.Function):
                                    device=g.device).copy_(g)
 
 
-def _gather_rows(t: torch.Tensor, group) -> torch.Tensor:
-    """[world, *t.shape]: every rank's ``t`` in rank order, by one sum
-    all-reduce of zero-padded rows (exact: each element is one rank's value
-    plus zeros), which NCCL and gloo take for tensors on the card and on
-    the CPU alike."""
-    out = t.new_zeros((dist.get_world_size(group), *t.shape))
-    out[dist.get_rank(group)] = t
-    dist.all_reduce(out, group=group)
-    return out
-
-
 class SyncBatchNormFn(torch.autograd.Function):
     """Train-mode batch normalization over a batch split evenly over the
     ranks of ``group``: the statistics, and the gradient through them, of
@@ -273,7 +263,7 @@ class SyncBatchNormFn(torch.autograd.Function):
         world = dist.get_world_size(group)
         xf = _widened(x)
         var_l, mean_l = torch.var_mean(xf, dim=(0, 2, 3), correction=0)
-        means, variances = _gather_rows(torch.stack([mean_l, var_l]), group).unbind(1)
+        means, variances = gather_rows(torch.stack([mean_l, var_l]), group).unbind(1)
         mean = means.mean(0)
         var = (variances + (means - mean) ** 2).mean(0)
         invstd = torch.rsqrt(var + eps)

@@ -12,8 +12,13 @@ one process with one card, in a ``torch.distributed`` group:
     batch: the loader of each rank already loads only its own rows
     (``data/loader.py``, sharded by (rank, world)).
   * ``allgather_host(x)`` gathers the ranks' eval rows so that every rank
-    sees the whole eval set; rank 0 writes the artifacts.
-  * ``broadcast_floats`` and ``barrier`` keep the ranks' host state in step.
+    sees the whole eval set (``allgather_strided`` in the dataset's
+    order); rank 0 writes the artifacts.
+  * ``broadcast_floats`` and ``barrier`` keep the ranks' host state in step;
+    ``broadcast_tensors`` copies one rank's tensors into the others' and
+    ``gather_rows`` gathers a tensor on the devices.
+  * ``spawn(entry, argv, world, device)`` runs an entry point on ``world``
+    ranks started on this host, when no launcher started them.
 
 Every helper is a collective at world > 1: every rank calls it, in the same
 order. None falls back to one process when the group or a collective
@@ -22,11 +27,15 @@ fails.
 
 from __future__ import annotations
 
+import json
 import os
+import tempfile
+from typing import Callable
 
 import numpy as np
 import torch
 import torch.distributed as dist
+import torch.multiprocessing
 
 from psla_tpu_torch.parallel.mesh import Mesh, drop_host_meta, shard_batch
 
@@ -108,6 +117,30 @@ def allgather_host(x) -> np.ndarray:
     return torch.cat(parts).cpu().numpy()
 
 
+def allgather_strided(rows, axis: int = 0) -> np.ndarray:
+    """Every rank's rows of a dataset (along ``axis``), each rank's in its
+    loader's order, in the dataset's order on every rank. A sequential
+    loader shard is strided (``data/loader.py``): rank r's p-th row is the
+    dataset's row W * p + r, so the gathered [W, P] rows come in order with
+    the rank axis moved last. The padded rows' mask takes the same gather.
+    World 1: ``rows``."""
+    gathered = allgather_host(torch.as_tensor(rows).movedim(axis, 0))
+    world = process_info()[1]
+    gathered = gathered.reshape(world, -1, *gathered.shape[1:])
+    return np.moveaxis(gathered.swapaxes(0, 1).reshape(-1, *gathered.shape[2:]), 0, axis)
+
+
+def gather_rows(t: torch.Tensor, group=None) -> torch.Tensor:
+    """[world, *t.shape]: every rank's ``t`` in the rank order of ``group``
+    (default: every rank), by one sum all-reduce of zero-padded rows
+    (exact: each element is one rank's value plus zeros), which NCCL and
+    gloo take for tensors on the card and on the CPU alike. No host sync."""
+    out = t.new_zeros((dist.get_world_size(group), *t.shape))
+    out[dist.get_rank(group)] = t
+    dist.all_reduce(out, group=group)
+    return out
+
+
 def broadcast_floats(values) -> np.ndarray:
     """Rank 0's small float vector on every rank (the other ranks' values are
     ignored; every rank passes one of the same shape). World 1: the values."""
@@ -127,14 +160,62 @@ def barrier(name: str):
         dist.barrier()
 
 
-def broadcast_tensors(tensors, mesh: Mesh):
-    """Rank 0's values of ``tensors`` copied into every rank's, in place."""
-    if mesh.world == 1:
-        return
-    for t in tensors:
-        if t.device == _comm_device(t):
-            dist.broadcast(t, src=0, group=mesh.group)
-        else:
-            tmp = t.to(_comm_device(t))
-            dist.broadcast(tmp, src=0, group=mesh.group)
-            t.copy_(tmp)
+def broadcast_tensors(tensors, mesh: Mesh | None = None, src: int = 0):
+    """The values of ``tensors`` on rank ``src`` of the mesh's row (its
+    position there) copied into every rank's of the row, in place; with no
+    ``mesh``, global rank ``src``'s into every rank's. One collective for
+    each dtype and device: the tensors travel as one flat buffer."""
+    if mesh is None:
+        group, root = None, src
+        if process_info()[1] == 1:
+            return
+    else:
+        if mesh.world == 1:
+            return
+        group, root = mesh.group, dist.get_global_rank(mesh.group, src)
+    tensors = list(tensors)
+    for key in dict.fromkeys((t.dtype, _comm_device(t)) for t in tensors):
+        same = [t for t in tensors if (t.dtype, _comm_device(t)) == key]
+        flat = torch.cat([t.reshape(-1).to(key[1]) for t in same])
+        dist.broadcast(flat, src=root, group=group)
+        offset = 0
+        for t in same:
+            t.copy_(flat[offset:offset + t.numel()].view_as(t))
+            offset += t.numel()
+
+
+def _rank_main(rank: int, entry: Callable[[list[str]], dict], world: int,
+               init_method: str, device: str, argv: list[str], result_path: str):
+    """One spawned rank: join the group, run ``entry(argv)``, and (rank 0)
+    write its result. The ranks share the host's cores: each takes its
+    share of the intra-op threads a process would take alone
+    (``OMP_NUM_THREADS``, else the cores)."""
+    torch.set_num_threads(max(1, torch.get_num_threads() // world))
+    maybe_initialize(rank=rank, world_size=world, init_method=init_method,
+                     local_rank=rank, device=device)
+    try:
+        result = entry(argv)
+        if rank == 0:
+            with open(result_path, "w") as f:
+                json.dump(result, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn(entry: Callable[[list[str]], dict], argv: list[str], world: int,
+          device: str) -> dict:
+    """``entry(argv)`` (a module-level function that returns a JSON-able
+    dict) on ``world`` ranks spawned on this host (one card each), meeting
+    at a file store; rank 0's result. A rank that fails fails the run
+    (``torch.multiprocessing.spawn`` stops the others and raises)."""
+    if torch.device(device).type == "cuda" and world > torch.cuda.device_count():
+        raise ValueError(f"requested num_devices={world} but only "
+                         f"{torch.cuda.device_count()} devices are visible")
+    with tempfile.TemporaryDirectory() as tmp:
+        result_path = os.path.join(tmp, "result.json")
+        torch.multiprocessing.spawn(
+            _rank_main, nprocs=world, join=True,
+            args=(entry, world, "file://" + os.path.join(tmp, "store"), device, argv,
+                  result_path))
+        with open(result_path) as f:
+            return json.load(f)

@@ -3,7 +3,7 @@
 
     python -m psla_tpu_torch.tools.ensemble m1.pth m2.pth ... \\
         --data-eval eval.json --label-csv labels.csv [--out-dir preds] \\
-        [--sequential] [--device cuda]
+        [--sequential] [--device cuda] [--num-devices N]
 
 Runs E checkpoints over an eval datafile, writes ``predictions_{i}.csv``
 and ``target.csv``, and scores each member and the mean of their
@@ -19,8 +19,15 @@ goes through the fbank kernel once, and then through the E member forwards
 back to back (the eval half of ``psla_tpu/parallel/ensemble.py``,
 ``build_ensemble_eval_step``). ``--sequential`` runs E full passes, one
 member on the card at a time, as the reference does. Members whose
-state_dict keys or shapes differ are evaluated sequentially. Several cards
-(``--num-devices``) wait for ROADMAP.md, Queue 1, item 6b.
+state_dict keys or shapes differ are evaluated sequentially.
+
+Several cards (``--num-devices N``, or torchrun's group): each rank holds
+every member and evaluates its strided shard of the eval set, stacked or
+sequential, with ``--batch-size`` / N rows a batch; the rows are gathered
+into the dataset's order, and rank 0 writes the CSVs and prints the
+scores. The JAX tool spreads each batch over every device the same way.
+``--num-devices N`` without a launcher spawns N ranks on this host (NCCL
+on the cards, gloo with ``--device cpu``).
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import argparse
 import contextlib
 import dataclasses
 import os
+import sys
 from typing import Mapping
 
 import numpy as np
@@ -42,6 +50,13 @@ from psla_tpu_torch.frontend.pipeline import PreprocessConfig, preprocess_eval
 from psla_tpu_torch.metrics import calculate_stats, d_prime
 from psla_tpu_torch.models import create_model
 from psla_tpu_torch.models.convert import load_variables
+from psla_tpu_torch.parallel.distributed import (
+    allgather_strided,
+    is_primary,
+    maybe_initialize,
+    process_info,
+    spawn,
+)
 from psla_tpu_torch.train.state import create_train_state, place_model
 from psla_tpu_torch.train.step import _wav_batch, build_eval_step
 
@@ -88,22 +103,47 @@ def _batches(loader: AudioLoader, device: torch.device):
     return contextlib.closing(prefetch_to_device(iter(loader), device, depth=PREFETCH))
 
 
+class _Rows:
+    """The rows of an eval pass: without a group, each batch's valid rows;
+    on several ranks, every row of this rank's shard (padding included, so
+    that every rank gathers the same shapes) and then every rank's valid
+    rows in the dataset's order (``parallel.distributed.allgather_strided``)."""
+
+    def __init__(self):
+        self.several = process_info()[1] > 1
+        self.preds, self.targets, self.valid = [], [], []
+
+    def add(self, host_batch, pred: torch.Tensor, axis: int = 0):
+        n_valid = int(host_batch["n_valid"])
+        n = pred.shape[axis] if self.several else n_valid
+        self.valid.append(np.arange(n) < n_valid)
+        self.preds.append(pred.narrow(axis, 0, n))
+        self.targets.append(host_batch["labels"][:n])
+
+    def result(self, axis: int = 0) -> tuple[np.ndarray, np.ndarray]:
+        pred = torch.cat(self.preds, dim=axis).cpu().numpy()  # one fetch a pass
+        target = np.concatenate(self.targets)
+        if not self.several:
+            return pred, target
+        keep = allgather_strided(np.concatenate(self.valid))
+        return (allgather_strided(pred, axis).compress(keep, axis),
+                allgather_strided(target)[keep])
+
+
 def predict(model: torch.nn.Module, loader: AudioLoader, pre_config: PreprocessConfig,
             device: str | torch.device = "cuda") -> tuple[np.ndarray, np.ndarray]:
     """One model over a loader through the train package's eval step ->
     (predictions [N, C], targets [N, C]); padded rows past ``n_valid`` are
-    dropped."""
+    dropped. On several ranks, every rank's shard in the dataset's order."""
     # the eval step reads the state's model and device only
     state = create_train_state(model, lambda step: 0.0, device=device)
     eval_step = build_eval_step(pre_config)
-    preds, targets = [], []
+    rows = _Rows()
     with _batches(loader, state.device) as batches:
         for host_batch, batch in batches:
-            n_valid = int(host_batch["n_valid"])
             out, _ = eval_step(state, batch)
-            preds.append(out[:n_valid])
-            targets.append(host_batch["labels"][:n_valid])
-    return torch.cat(preds).cpu().numpy(), np.concatenate(targets)
+            rows.add(host_batch, out)
+    return rows.result()
 
 
 @torch.inference_mode()
@@ -114,18 +154,17 @@ def predict_stacked(models: list[torch.nn.Module], loader: AudioLoader,
 
     Each batch is copied to the card and through the fbank once; the E
     forwards then read the same log-mel one after another (none writes
-    into it), so the peak memory stays near one member's activations."""
+    into it), so the peak memory stays near one member's activations. On
+    several ranks, every rank's shard in the dataset's order."""
     device = torch.device(device)
     models = [place_model(m, device).eval() for m in models]
     eval_config = pre_config.eval_variant()
-    preds, targets = [], []
+    rows = _Rows()
     with _batches(loader, device) as batches:
         for host_batch, batch in batches:
-            n_valid = int(host_batch["n_valid"])
             logmel = preprocess_eval(_wav_batch(batch, device), eval_config)
-            preds.append(torch.stack([m(logmel)[:n_valid] for m in models]))
-            targets.append(host_batch["labels"][:n_valid])
-    return torch.cat(preds, dim=1).cpu().numpy(), np.concatenate(targets)
+            rows.add(host_batch, torch.stack([m(logmel) for m in models]), axis=1)
+    return rows.result(axis=1)
 
 
 def scores(pred: np.ndarray, target: np.ndarray) -> tuple[float, float]:
@@ -155,12 +194,15 @@ def ensemble_eval(
 ) -> dict:
     """Evaluate each checkpoint, then the mean of their predictions
     (ensemble.py:52-68). Returns per-model and ensemble mAP, mAUC and d'.
-    ``att_head``, where given, must be every checkpoint's head count."""
+    ``att_head``, where given, must be every checkpoint's head count. On
+    several ranks (``loader`` this rank's shard) every rank returns the
+    scores of the whole set, and rank 0 prints them and writes the CSVs."""
+    say = print if is_primary() else (lambda *a, **k: None)
     state_dicts = [load_variables(c) for c in checkpoints]
     for ckpt, sd in zip(checkpoints, state_dicts):
         check_heads(ckpt, sd, att_head, model_name)
     if stacked and not same_layout(state_dicts):
-        print("checkpoint param trees differ; falling back to sequential")
+        say("checkpoint param trees differ; falling back to sequential")
         stacked = False
 
     def member(i: int) -> torch.nn.Module:
@@ -178,8 +220,8 @@ def ensemble_eval(
             pred, target = predict(member(i), loader, pre_config, device)
         m, a = scores(pred, target)
         per_model.append({"ckpt": ckpt, "mAP": m, "mAUC": a, "d_prime": d_prime(a)})
-        print(f"model {i} ({ckpt}): mAP {m:.6f} AUC {a:.6f}")
-        if out_dir:
+        say(f"model {i} ({ckpt}): mAP {m:.6f} AUC {a:.6f}")
+        if out_dir and is_primary():
             os.makedirs(out_dir, exist_ok=True)
             np.savetxt(os.path.join(out_dir, f"predictions_{i}.csv"), pred, delimiter=",")
             if i == 0:
@@ -187,8 +229,8 @@ def ensemble_eval(
         summed = pred if summed is None else summed + pred
 
     m, a = scores(summed / len(checkpoints), target)
-    print(f"ensemble of {len(checkpoints)}: mAP {m:.6f} AUC {a:.6f} "
-          f"d_prime {d_prime(a):.6f}")
+    say(f"ensemble of {len(checkpoints)}: mAP {m:.6f} AUC {a:.6f} "
+        f"d_prime {d_prime(a):.6f}")
     return {"models": per_model, "ensemble": {"mAP": m, "mAUC": a, "d_prime": d_prime(a)}}
 
 
@@ -221,32 +263,62 @@ def eval_parser(description: str) -> argparse.ArgumentParser:
 
 
 def eval_setup(args) -> tuple[AudioLoader, PreprocessConfig, int]:
-    """(eval loader, eval preprocessing, class count) from the shared flags."""
+    """(eval loader, eval preprocessing, class count) from the shared flags.
+    For a tool that takes ``--num-devices`` (this one), on several ranks the
+    loader is this rank's strided shard, and the batch size (the global
+    batch) is split over the ranks."""
     cfg = from_preset(args.preset) if args.preset else ExperimentConfig()
     if args.target_length:
         cfg = dataclasses.replace(cfg, target_length=args.target_length)
     pre = cfg.preprocess_config().eval_variant()
+    rank, world = process_info() if hasattr(args, "num_devices") else (0, 1)
+    batch_size = args.batch_size or cfg.batch_size
+    if batch_size % world:
+        raise ValueError(f"--batch-size {batch_size} is the global batch and is not "
+                         f"divisible by the {world} ranks")
     loader = AudioLoader(
         load_datafile(args.data_eval, args.label_csv),
-        LoaderConfig(batch_size=args.batch_size or cfg.batch_size,
+        LoaderConfig(batch_size=batch_size // world,
                      buffer_samples=pre.fbank.buffer_length(cfg.target_length),
-                     drop_remainder=False),
+                     drop_remainder=False, host_id=rank, num_hosts=world),
         shuffle=False,
     )
     return loader, pre, args.n_class or cfg.n_class
 
 
-def main(argv=None) -> int:
+def build_parser() -> argparse.ArgumentParser:
     p = eval_parser(__doc__.split("\n")[0])
     p.add_argument("--out-dir", default=None)
     p.add_argument("--sequential", action="store_true",
                    help="one full eval pass per model (reference behavior) instead of "
                         "the stacked single-pass default")
-    args = p.parse_args(argv)
+    p.add_argument("--num-devices", type=int, default=None,
+                   help="ranks that split the eval set, one card each: under torchrun its "
+                        "world size (the default), else N > 1 spawns N ranks on this host")
+    return p
+
+
+def run(argv=None) -> dict:
+    """Library entry: parse, evaluate and return ``ensemble_eval``'s scores
+    (rank 0's, when it spawns ranks)."""
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = build_parser().parse_args(argv)
+    maybe_initialize(device=args.device)
+    world = process_info()[1]
+    if world == 1 and (args.num_devices or 1) > 1:
+        return spawn(run, argv, args.num_devices, args.device)
+    if args.num_devices is not None and args.num_devices != world:
+        raise ValueError(f"--num-devices {args.num_devices} under a launcher's "
+                         f"{world}-rank group: leave it out or give {world}")
     loader, pre, n_class = eval_setup(args)
-    ensemble_eval(args.checkpoints, loader, pre, model_name=args.model, n_class=n_class,
-                  eff_b=args.eff_b, out_dir=args.out_dir, stacked=not args.sequential,
-                  device=args.device, att_head=args.att_head)
+    return ensemble_eval(args.checkpoints, loader, pre, model_name=args.model,
+                         n_class=n_class, eff_b=args.eff_b, out_dir=args.out_dir,
+                         stacked=not args.sequential, device=args.device,
+                         att_head=args.att_head)
+
+
+def main(argv=None) -> int:
+    run(argv)
     return 0
 
 

@@ -1,5 +1,5 @@
-"""The ensemble trainer: E independent seeds trained in lockstep on one
-card (port of ``psla_tpu/train/ensemble_loop.py``).
+"""The ensemble trainer: E independent seeds trained in lockstep, on one
+card or on several ranks (port of ``psla_tpu/train/ensemble_loop.py``).
 
 The PSLA protocol's headline numbers come from ensembles of independently
 trained models (reference README.md:206: 10 models -> 0.474 mAP; the
@@ -30,10 +30,15 @@ and to the seed mean:
     stay per-seed fresh, as in the reference protocol, where each member is
     a job with its own init.
 
-Left out until ensembles across ranks (ROADMAP.md, Queue 1, item 6b): the JAX
-trainer's multi-host pieces (its loader-shard check, the CLI's loader remap
-by ``ensemble_layout``, the gather of members sharded across hosts). Here
-every member is on the one card.
+Several ranks (``--num-devices W``): ``parallel.ensemble.ensemble_layout``
+splits the W ranks into rows of R ranks; each row trains E / rows members
+data-parallel over its R ranks, and every row sees the same batches (each
+rank's loader is sharded by its position within its row,
+``cli.make_loaders``; ``_check_loader_shards`` refuses a loader sharded
+by the global rank). The stacked checkpoint is gathered to rank 0, which
+alone writes it, so it is the same file whatever the layout, and a run
+resumes from it at any W. Validation gathers every row's members and every
+position's rows into [E, N, C] in the dataset's order; rank 0 writes.
 """
 
 from __future__ import annotations
@@ -46,13 +51,23 @@ import torch
 
 from psla_tpu_torch.data.device_prefetch import prefetch_to_device
 from psla_tpu_torch.metrics import calculate_stats
+from psla_tpu_torch.parallel.distributed import (
+    allgather_host,
+    barrier,
+    is_primary,
+    process_info,
+)
 from psla_tpu_torch.parallel.ensemble import (
     EnsembleState,
+    ensemble_layout,
     ensemble_member,
     init_ensemble_state,
+    local_members,
     make_ensemble_eval_step,
     make_ensemble_train_step,
+    place_members,
 )
+from psla_tpu_torch.parallel.mesh import make_mesh
 from psla_tpu_torch.train.loop import Trainer
 from psla_tpu_torch.train.step import TrainDraws, draw_train, step_generator
 
@@ -75,22 +90,49 @@ class EnsembleTrainer(Trainer):
         super().__init__(config, train_loader, val_loader, eval_loader, device=device)
 
     def _build_steps(self):
-        self.train_step = make_ensemble_train_step(self.pre_config, self.config.loss)
+        """The ensemble mesh (``ensemble_layout``'s rows over the ranks) and
+        the steps on it; on several ranks, first the loaders' shards."""
+        rank, world = process_info()
+        rows, position, per_row = ensemble_layout(self.num_seeds, world, rank, world)
+        if world > 1:
+            self._check_loader_shards(position, per_row)
+        self.mesh = make_mesh(self.config.num_devices, self.device, ensemble=rows)
+        self.members = local_members(self.num_seeds, self.mesh)
+        self.train_step = make_ensemble_train_step(self.pre_config, self.config.loss,
+                                                   self.mesh)
         self.eval_step = make_ensemble_eval_step(self.pre_config, self.config.loss)
+
+    def _check_loader_shards(self, position: int, per_row: int):
+        """The rows see the same batches, so each loader must be sharded by
+        this rank's position within its row (``cli.make_loaders`` does it);
+        a loader sharded by the global rank would feed the replicas of a
+        member different rows. Raises for such a loader (JAX
+        ``EnsembleTrainer._check_loader_shards``)."""
+        for name in ("train_loader", "val_loader", "eval_loader"):
+            loader = getattr(self, name)
+            if loader is None:
+                continue
+            got = (loader.config.host_id, loader.config.num_hosts)
+            if got != (position, per_row):
+                raise ValueError(
+                    f"EnsembleTrainer: {name} is sharded as {got[0]}/{got[1]} but this "
+                    f"rank's position within its ensemble row is {position}/{per_row}; "
+                    "build the loaders with the ensemble_layout-remapped shard "
+                    "(cli.make_loaders does this)")
 
     # ------------------------------------------------------------- state
 
     def init_state(self) -> EnsembleState:
         """Member i freshly initialised from seed + i (member 0 is the single
-        model's init), overlaid with the pretrained file if any."""
+        model's init), overlaid with the pretrained file if any: this rank's
+        row's members, replicated over the row."""
         cfg = self.config
-        state = init_ensemble_state(self._new_model,
-                                    [cfg.seed + i for i in range(self.num_seeds)],
-                                    self.schedule, device=self.device)
+        state = init_ensemble_state(self._new_model, [cfg.seed + i for i in self.members],
+                                    self.schedule, device=self.device, mesh=self.mesh)
         sd = self._pretrained()
         if sd is not None:
             self._overlay_pretrained(sd, state)
-        return state
+        return place_members(state)
 
     def _overlay_pretrained(self, sd: dict[str, torch.Tensor], state: EnsembleState):
         """Convert the file against every member's own init and load it,
@@ -106,45 +148,53 @@ class EnsembleTrainer(Trainer):
         return [m.model for m in state.members]
 
     def draws(self, step: int, batch_size: int) -> list[TrainDraws]:
-        """Global step ``step``'s draws of each member, each from its own
-        generator (``step_generator`` with the member's index)."""
+        """Global step ``step``'s draws of each local member for the global
+        batch, each from its own generator (``step_generator`` with the
+        member's global index)."""
         return [draw_train(step_generator(self.config.seed, step, self.device, member=i),
                            self.model, batch_size, self.pre_config)
-                for i in range(self.num_seeds)]
+                for i in self.members]
 
     # ------------------------------------------------------- checkpointing
 
     @staticmethod
-    def _checkpoint(state: EnsembleState) -> dict:
-        """The stacked checkpoint: {"step", "seeds": E, "model": every
+    def _stacked(payloads: list[dict]) -> dict:
+        """The stacked checkpoint of the E members' payloads
+        (``ensemble_member``): {"step", "seeds": E, "model": every
         state_dict entry stacked along a leading seed axis, "optimizer": the
         members' Adam state_dicts}. Weight averaging averages it entry by
         entry."""
-        sds = [m.model.state_dict() for m in state.members]
-        return {"step": int(state.step), "seeds": len(sds),
+        sds = [p["model"] for p in payloads]
+        return {"step": payloads[0]["step"], "seeds": len(sds),
                 "model": {k: torch.stack([sd[k] for sd in sds]) for k in sds[0]},
-                "optimizer": [m.optimizer.state_dict() for m in state.members]}
+                "optimizer": [p["optimizer"] for p in payloads]}
 
     def save_checkpoint(self, state: EnsembleState, tag):
-        super().save_checkpoint(state, tag)
-        if str(tag) in ("best", "wa"):
-            for i in range(self.num_seeds):
-                self._write_checkpoint(Trainer._checkpoint(ensemble_member(state, i)),
-                                       f"{tag}_seed{i}")
+        """Every member gathered (a collective), then rank 0 writes the
+        stacked checkpoint and, for 'best' and 'wa', each member alone; every
+        rank waits until the files are there."""
+        payloads = [ensemble_member(state, i) for i in range(self.num_seeds)]
+        if is_primary():
+            self._write_checkpoint(self._stacked(payloads), tag)
+            if str(tag) in ("best", "wa"):
+                for i, payload in enumerate(payloads):
+                    self._write_checkpoint(payload, f"{tag}_seed{i}")
+        barrier(f"checkpoint_{tag}")
 
     def _state_from(self, ckpt: dict) -> EnsembleState:
-        """The members of a stacked checkpoint (or of weight averaging's
-        stacked mean, which has no optimizer: fresh Adams)."""
+        """This rank's members of a stacked checkpoint (or of weight
+        averaging's stacked mean, which has no optimizer: fresh Adams), each
+        replicated over the row (``Trainer._state_from``)."""
         if ckpt.get("seeds", self.num_seeds) != self.num_seeds:
             raise ValueError(f"the checkpoint holds {ckpt['seeds']} ensemble members, "
                              f"--ensemble-seeds asks for {self.num_seeds}")
         members = []
-        for i in range(self.num_seeds):
+        for i in self.members:
             one = {"step": ckpt["step"], "model": {k: v[i] for k, v in ckpt["model"].items()}}
             if "optimizer" in ckpt:
                 one["optimizer"] = ckpt["optimizer"][i]
             members.append(super()._state_from(one))
-        return EnsembleState(members)
+        return EnsembleState(members, self.mesh)
 
     # ------------------------------------------------------- seed_result
 
@@ -179,24 +229,63 @@ class EnsembleTrainer(Trainer):
 
     def validate(self, state: EnsembleState, loader, epoch, eval_target=False):
         """Every member and the seed mean in one pass (one fbank launch a
-        batch). Returns the seed mean's (stats, loss), which the trainer and
-        the protocol read; the members' mAPs go to seed_result.csv."""
-        preds, targets, losses = [], [], []
+        batch on each rank). Returns the seed mean's (stats, loss), which the
+        trainer and the protocol read; the members' mAPs go to
+        seed_result.csv. On several ranks each evaluates its loader shard
+        with its row's members, every rank gets all members' rows in the
+        dataset's order (``_gathered``), and rank 0 writes."""
+        several = self.mesh.rows * self.mesh.world > 1
+        preds, targets, losses, valid = [], [], [], []
         with contextlib.closing(prefetch_to_device(
                 iter(loader), self.device, depth=self.config.device_prefetch)) as batches:
             for host_batch, batch in batches:
                 out, per_sample = self.eval_step(state, batch)
-                n_valid = int(host_batch["n_valid"])
-                preds.append(out[:, :n_valid])
-                targets.append(host_batch["labels"][:n_valid])
-                losses.append(per_sample[:, :n_valid])
+                n_rows = n_valid = int(host_batch["n_valid"])
+                if several:  # the padded rows too: every rank gathers the same shapes
+                    n_rows = out.shape[1]
+                    valid.append(np.arange(n_rows) < n_valid)
+                preds.append(out[:, :n_rows])
+                targets.append(host_batch["labels"][:n_rows])
+                losses.append(per_sample[:, :n_rows])
         output = torch.cat(preds, dim=1).cpu().numpy()  # [E, N, C], one fetch a pass
         target = np.concatenate(targets)
-        loss = float(np.mean(torch.cat(losses, dim=1).cpu().numpy()))
+        loss_rows = torch.cat(losses, dim=1).cpu().numpy()
+        if several:
+            keep = self._gathered(np.concatenate(valid)[None])[0]
+            output, loss_rows = (self._gathered(a)[:, keep] for a in (output, loss_rows))
+            target = self._gathered(target[None])[0][keep]
+        loss = float(np.mean(loss_rows))
         member_stats = [calculate_stats(output[i], target) for i in range(self.num_seeds)]
         mean_pred = output.mean(axis=0)
         stats = calculate_stats(mean_pred, target)
+        member_maps = [float(np.mean([s["AP"] for s in ms])) for ms in member_stats]
+        ens_map = float(np.mean([s["AP"] for s in stats]))
+        if is_primary():
+            self._write_validation(epoch, target, mean_pred, output, eval_target)
+            self._write_seed_result(epoch, member_maps, ens_map)
+        barrier(f"validate_{epoch}")  # the protocol reads the CSVs next
+        print(f"[{epoch}] seed mAPs: " + " ".join(f"{m:.4f}" for m in member_maps)
+              + f" | seed-ensemble mAP: {ens_map:.4f}")
+        return stats, loss
 
+    def _gathered(self, local: np.ndarray) -> np.ndarray:
+        """[E, N, ...]: every rank's [E_local, P, ...] rows (its row's
+        members on its loader shard, padded rows included) with the members
+        in order and the data rows in the dataset's order. A rank at
+        position p of a row of R ranks holds the dataset's rows R * j + p
+        (a strided loader shard, ``parallel.distributed.allgather_strided``); the other rows
+        hold the same data rows for other members. A [1, P] array (the
+        targets, the padding mask) comes back as [rows, N]."""
+        rest = local.shape[2:]
+        gathered = allgather_host(np.ascontiguousarray(np.moveaxis(local, 1, 0)))
+        # [rows, R, P, E_local, ...] by global rank, -> [rows, E_local, P, R, ...]
+        gathered = gathered.reshape(self.mesh.rows, self.mesh.world, -1, len(local), *rest)
+        gathered = gathered.transpose(0, 3, 2, 1, *range(4, gathered.ndim))
+        return gathered.reshape(-1, gathered.shape[2] * gathered.shape[3], *rest)
+
+    def _write_validation(self, epoch, target, mean_pred, output, eval_target: bool):
+        """The target matrix, the seed mean's predictions and each member's
+        (rank 0)."""
         pred_dir = os.path.join(self.exp_dir, "predictions")
         self._write_target_csv(pred_dir, "target.csv", target)
         np.savetxt(os.path.join(pred_dir, f"predictions_{epoch}.csv"), mean_pred,
@@ -212,9 +301,3 @@ class EnsembleTrainer(Trainer):
                     os.remove(prev)
         if eval_target:
             self._write_target_csv(pred_dir, "eval_target.csv", target)
-        member_maps = [float(np.mean([s["AP"] for s in ms])) for ms in member_stats]
-        ens_map = float(np.mean([s["AP"] for s in stats]))
-        self._write_seed_result(epoch, member_maps, ens_map)
-        print(f"[{epoch}] seed mAPs: " + " ".join(f"{m:.4f}" for m in member_maps)
-              + f" | seed-ensemble mAP: {ens_map:.4f}")
-        return stats, loss

@@ -53,7 +53,7 @@ from psla_tpu_torch.models.pretrained import (
     resolve_imagenet_checkpoint,
 )
 from psla_tpu_torch.parallel.distributed import (
-    allgather_host,
+    allgather_strided,
     barrier,
     broadcast_floats,
     is_primary,
@@ -520,7 +520,8 @@ class Trainer:
         dropped. The loss is the mean of per-sample losses (the reference
         averages per-batch means; identical for equal batch sizes). On
         several ranks each evaluates its own shard, every rank gets all rows
-        in the dataset's order (``_gathered_rows``) and rank 0 writes."""
+        in the dataset's order (``parallel.distributed.allgather_strided``)
+        and rank 0 writes."""
         preds, targets, losses, valid = [], [], [], []
         with contextlib.closing(prefetch_to_device(
                 iter(loader), self.device, depth=self.config.device_prefetch)) as batches:
@@ -541,9 +542,9 @@ class Trainer:
             target = np.concatenate(targets)
             loss_rows = torch.cat(losses).cpu().numpy()
         else:
-            keep = self._gathered_rows(np.concatenate(valid))
+            keep = allgather_strided(np.concatenate(valid))
             output, target, loss_rows = (
-                self._gathered_rows(rows)[keep]
+                allgather_strided(rows)[keep]
                 for rows in (torch.cat(preds), np.concatenate(targets), torch.cat(losses)))
         loss = float(np.mean(loss_rows))
         stats = calculate_stats(output, target)
@@ -557,16 +558,6 @@ class Trainer:
                 self._write_target_csv(pred_dir, "eval_target.csv", target)
         barrier(f"validate_{epoch}")  # the protocol reads the CSVs next
         return stats, loss
-
-    def _gathered_rows(self, rows) -> np.ndarray:
-        """Every rank's eval rows (this rank's, in loader order) in the
-        dataset's order. A sequential loader shard is strided
-        (``data/loader.py``): rank r's p-th row is the dataset's row
-        W * p + r, so the gathered [W, P] rows come in order with the rank
-        axis moved last. The padded rows' mask takes the same gather."""
-        gathered = allgather_host(rows)
-        gathered = gathered.reshape(self.mesh.world, -1, *gathered.shape[1:])
-        return gathered.swapaxes(0, 1).reshape(-1, *gathered.shape[2:])
 
     def _write_target_csv(self, pred_dir: str, name: str, target):
         """Write a target matrix once per trainer: the FIRST write

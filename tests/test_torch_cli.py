@@ -1,8 +1,8 @@
 """``psla-torch-train`` (``psla_tpu_torch.cli``) on the CPU: the whole
 protocol through ``run``, an exact resume through ``--resume``, a bfloat16
-run with int8 activation compression, the flags of later ROADMAP items,
-the parser against the JAX package's, and the import isolation of the
-trainer's modules.
+run with int8 activation compression, the refused flags, the parser
+against the JAX package's, and the import isolation of the trainer's
+modules.
 
 Size: B0, one head, T=128, 4 classes, batch 8, on tests/synth.build_corpus
 (16 one-second tone clips: 2 steps an epoch).
@@ -98,16 +98,6 @@ def test_resume_reproduces_the_uninterrupted_run_exactly(corpus, tmp_path):
     np.testing.assert_array_equal(
         np.loadtxt(os.path.join(a, "result.csv"), delimiter=","),
         np.loadtxt(os.path.join(b, "result.csv"), delimiter=","))
-
-
-@pytest.mark.parametrize("extra,match", [
-    (("--ensemble-seeds", "3", "--num-devices", "2"), "item 6b"),
-    (("--ensemble-seeds", "2", "--num-devices", "2"), "item 6b"),
-])
-def test_flags_of_later_items_raise(extra, match):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md, Queue 1, {match}"):
-        cli.run(["--data-train", "missing.json", "--device", "cpu",
-                 "--impretrain", "False", *extra])
 
 
 @pytest.mark.parametrize("extra", [
