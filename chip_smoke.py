@@ -6,7 +6,7 @@ Run from the root of a checkout, on a machine with one CUDA card:
 
 or on N cards, for the phases that span them (12 and 14 (c)):
 
-    python3 chip_smoke.py --data-parallel N [--rows-only]
+    python3 chip_smoke.py --data-parallel N [--profile]
 
 Phases, in order (any failure ends the script with a non-zero exit and no
 result line):
@@ -232,9 +232,13 @@ result line):
    plus its eval batches, only rank 0 writes, the stacked checkpoint holds
    both seeds; ``tools/ensemble --num-devices 2`` on the run's best members
    within 1e-5 of one process's. (c) ``--data-parallel N`` (N cards, NCCL,
-   one rank a card; ``--rows-only`` skips phase 12): E=2 on two rows of
-   N/2 cards, each row data-parallel on its own process group, held to the
-   one-process step at phase 12's bars and timed a rank.
+   one rank a card, after phase 12): E=2 on two rows of N/2 cards, each
+   row data-parallel on its own process group, held to the one-process
+   step at phase 12's bars and timed a rank; ``--profile`` times it beside
+   the same step without the seed losses' gather over every rank and
+   phase 12's single-model step at the same clips a rank, and prints each
+   one's device time by group (the NCCL collectives apart) over a
+   profiled step.
 
 The line before the last is a JSON object with one record per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -303,6 +307,7 @@ from psla_tpu_torch.tools import export as export_tool
 from psla_tpu_torch.tools import flagship, prep_fsd, smoke, verify_release
 from psla_tpu_torch.tools import predict as predict_tool
 from psla_tpu_torch.tools import weight_averaging as wa_tool
+from psla_tpu_torch.parallel import ensemble as ensemble_module
 from psla_tpu_torch.parallel.ensemble import (
     EnsembleState,
     ensemble_layout,
@@ -1420,17 +1425,28 @@ def profile_train_step(state, step, batch: dict, gen: torch.Generator,
         torch.cuda.synchronize()
     averages = prof.key_averages()
     print(averages.table(sort_by="self_cuda_time_total", row_limit=30))
-    groups: dict[str, float] = {}
+    groups, launches = device_groups(averages)
+    print_groups("train step", groups, launches)
+
+
+def device_groups(averages, groups=KERNEL_GROUPS) -> tuple[dict[str, float], int]:
+    """A profile's device ms by group (``groups``: (name, pattern) pairs
+    matched on the kernel's name in order), and its kernels and copies."""
+    out: dict[str, float] = {}
     launches = 0
     for e in averages:
         if e.device_type != torch.autograd.DeviceType.CUDA or not e.self_device_time_total:
             continue
         launches += e.count
-        name = next((g for g, pattern in KERNEL_GROUPS if re.search(pattern, e.key, re.I)),
+        name = next((g for g, pattern in groups if re.search(pattern, e.key, re.I)),
                     "elementwise and other (SiLU, squeeze-excite, mixup, masks, ...)")
-        groups[name] = groups.get(name, 0.0) + e.self_device_time_total / 1e3
+        out[name] = out.get(name, 0.0) + e.self_device_time_total / 1e3
+    return out, launches
+
+
+def print_groups(what: str, groups: dict[str, float], launches: int):
     total = sum(groups.values())
-    print(f"train step device time by group ({total:.2f} ms in {launches} kernels and copies):")
+    print(f"{what} device time by group ({total:.2f} ms in {launches} kernels and copies):")
     for name, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"  {name}: {ms:.2f} ms ({ms / total:.1%})")
 
@@ -3781,54 +3797,116 @@ def one_process_ensemble(seeds: int, cfg: PreprocessConfig, batch: dict) -> dict
                         for m in state.members]}
 
 
-def rows_steps_rank(world: int, seed_counts: list[int], timed: int) -> dict:
+def timed_loop(run, timed: int) -> dict:
+    """``run()`` (one step) ``WARM_STEPS`` times, then ``timed`` times
+    between CUDA events: device ms of each, wall ms a step, peak memory."""
+    for _ in range(WARM_STEPS):
+        run()
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(timed)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for start, end in events:
+        start.record()
+        run()
+        end.record()
+    torch.cuda.synchronize()
+    return {"wall_ms": (time.perf_counter() - t0) * 1e3 / timed,
+            "device_ms": [a.elapsed_time(b) for a, b in events],
+            "peak": torch.cuda.max_memory_allocated()}
+
+
+# (c) --profile: device time by group, with the collectives' kernels apart
+RANK_GROUPS = (("NCCL collectives (with the waits on the other ranks)", r"nccl"),
+               *KERNEL_GROUPS)
+
+
+def profiled(run) -> dict[str, float]:
+    """Device ms by ``RANK_GROUPS`` over one ``run()``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return device_groups(prof.key_averages(), RANK_GROUPS)[0]
+
+
+def rows_steps_rank(world: int, seed_counts: list[int], timed: int,
+                    profile: bool = False) -> dict:
     """This rank's part of (b) or (c): for each E in ``seed_counts``, its
     row's members from phase 11's seeded weights placed on the row, one
     step of its share of the batch (the fbank launches counted: E_local),
-    then ``timed`` steps timed after WARM_STEPS."""
+    then ``timed`` steps timed after WARM_STEPS. With ``profile`` ((c)),
+    the same steps timed with the seed losses' gather over every rank
+    (``gather_seeds``) left out, as a trainer that gathers them once a
+    logging interval would run them, and the data-parallel single-model
+    step over every rank at the same clips a rank (phase 12's path), each
+    with one profiled step."""
     cfg = train_config()
     out = {}
     for seeds in seed_counts:
         rows = ensemble_layout(seeds, world, dist.get_rank(), world)[0]
         mesh = make_mesh(device=DEVICE, ensemble=rows)
         members = local_members(seeds, mesh)
-        state = place_members(EnsembleState(
-            [train_state(seeded_state_dict(ENSEMBLE_SEEDS[i])) for i in members], mesh))
+        held = {"state": place_members(EnsembleState(
+            [train_state(seeded_state_dict(ENSEMBLE_SEEDS[i])) for i in members], mesh))}
         step = make_ensemble_train_step(cfg, "BCE", mesh)
         batch = shard_batch(train_batch(cfg, batch=ROWS_BATCH), mesh)
 
-        def draws():
-            return [draw_train(step_generator(0, state.step, DEVICE, member=i),
-                               state.members[0].model, ROWS_BATCH, cfg) for i in members]
+        def run():
+            state = held["state"]
+            held["state"], held["metrics"] = step(state, batch, [
+                draw_train(step_generator(0, state.step, DEVICE, member=i),
+                           state.members[0].model, ROWS_BATCH, cfg) for i in members])
 
         torch.cuda.synchronize()
         fbank_cuda.LAUNCHES = 0
-        state, metrics = step(state, batch, draws())
+        run()
         torch.cuda.synchronize()
         got = {"launches": fbank_cuda.LAUNCHES, "members": list(members), "row": mesh.row,
-               "seed_loss": metrics["seed_loss"].cpu(),
+               "seed_loss": held["metrics"]["seed_loss"].cpu(),
                "state": [{k: v.detach().cpu().clone() for k, v in m.model.state_dict().items()}
-                         for m in state.members]}
+                         for m in held["state"].members]}
         if timed:
-            for _ in range(WARM_STEPS):
-                state, _ = step(state, batch, draws())
-            events = [(torch.cuda.Event(enable_timing=True),
-                       torch.cuda.Event(enable_timing=True)) for _ in range(timed)]
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            for start, end in events:
-                start.record()
-                state, metrics = step(state, batch, draws())
-                end.record()
-            torch.cuda.synchronize()
-            got.update(wall_ms=(time.perf_counter() - t0) * 1e3 / timed,
-                       device_ms=[a.elapsed_time(b) for a, b in events],
-                       peak=torch.cuda.max_memory_allocated())
+            got["as is"] = timed_loop(run, timed)
+        if profile:
+            got["as is"]["groups"] = profiled(run)
+            gather = ensemble_module.gather_seeds
+            ensemble_module.gather_seeds = lambda local, mesh: local
+            try:
+                got["deferred"] = timed_loop(run, timed)
+                got["deferred"]["groups"] = profiled(run)
+            finally:
+                ensemble_module.gather_seeds = gather
         out[seeds] = got
-        del state
+        del held
         torch.cuda.empty_cache()
+    if profile:
+        out["data-parallel"] = dp_step_timed(cfg, ROWS_BATCH // mesh.world * world, timed)
     return out
+
+
+def dp_step_timed(cfg: PreprocessConfig, batch_size: int, timed: int) -> dict:
+    """(c) --profile: phase 12's data-parallel single-model step over every
+    rank at global batch ``batch_size``, timed and profiled as the rows'."""
+    mesh = make_mesh(device=DEVICE)
+    held = {"state": replicate_state(train_state(seeded_state_dict(ENSEMBLE_SEEDS[0])), mesh)}
+    step = build_train_step(cfg, "BCE", mesh)
+    batch = shard_batch(train_batch(cfg, batch=batch_size), mesh)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+
+    def run():
+        state = held["state"]
+        held["state"], _ = step(state, batch, draw_train(gen, state.model, batch_size, cfg))
+
+    got = timed_loop(run, timed)
+    got["groups"] = profiled(run)
+    got["batch"] = batch_size
+    del held
+    torch.cuda.empty_cache()
+    return got
 
 
 def rows_cli_rank(root: str, base: list[str], tool: list[str]) -> dict:
@@ -3854,12 +3932,12 @@ def rows_cli_rank(root: str, base: list[str], tool: list[str]) -> dict:
 
 def rows_rank(rank: int, store: str, root: str, world: int, backend: str,
               seed_counts: list[int], timed: int, base: list[str] | None,
-              tool: list[str] | None):
+              tool: list[str] | None, profile: bool = False):
     """One rank of (b) or (c): the held steps, then (with ``base``) the
     trainer and the ensemble tool; its results in ``{root}/rank{rank}.pt``."""
     join_group(rank, store, world, backend)
     try:
-        out = {"steps": rows_steps_rank(world, seed_counts, timed)}
+        out = {"steps": rows_steps_rank(world, seed_counts, timed, profile)}
         if base:
             out["cli"] = rows_cli_rank(root, base, tool)
         torch.save(out, os.path.join(root, f"rank{rank}.pt"))
@@ -3908,13 +3986,30 @@ def rows_steps(got: list[dict], ref: dict, world: int, backend: str, timed: int)
               and diff.mean() <= DP_PARAM_MEAN and np.percentile(diff, 99) <= DP_PARAM_P99
               and stats_err <= STATS_ATOL, f"E={seeds} on {world} ranks off one process's")
         for rank, r in enumerate(steps if timed else []):
-            print(f"(b/c) E={seeds}, rank {rank} (row {r['row']}): {timed} steps after "
-                  f"{WARM_STEPS}: device {np.mean(r['device_ms']):.2f} ms/step (CUDA events, "
-                  f"with the waits on the other ranks; {min(r['device_ms']):.2f}-"
-                  f"{max(r['device_ms']):.2f}), wall {r['wall_ms']:.2f} ms/step "
-                  f"({ROWS_BATCH / r['wall_ms'] * 1e3:.1f} clips/s of the shared stream), peak "
-                  f"{r['peak'] / 2**30:.2f} GiB ({card()})")
+            for variant in ("as is", "deferred"):
+                if variant in r:
+                    print_rank_timing(f"(c) E={seeds}, rank {rank} (row {r['row']}), "
+                                      f"{variant}", r[variant], ROWS_BATCH, timed)
+    for rank, g in enumerate(got):
+        if "data-parallel" in g["steps"]:
+            t = g["steps"]["data-parallel"]
+            print_rank_timing(f"(c) phase 12's data-parallel step over the {world} ranks, "
+                              f"rank {rank}", t, t["batch"], timed)
     return launches
+
+
+def print_rank_timing(what: str, t: dict, batch: int, timed: int):
+    """A rank's ``timed_loop`` result (and its profiled step's groups)."""
+    print(f"{what}: {timed} steps after {WARM_STEPS}: device "
+          f"{np.mean(t['device_ms']):.2f} ms/step (CUDA events, with the waits on the other "
+          f"ranks; {min(t['device_ms']):.2f}-{max(t['device_ms']):.2f}), wall "
+          f"{t['wall_ms']:.2f} ms/step ({batch / t['wall_ms'] * 1e3:.1f} clips/s of the "
+          f"global batch of {batch}), peak {t['peak'] / 2**30:.2f} GiB ({card()})")
+    if "groups" in t:
+        total = sum(t["groups"].values())
+        print(f"  one profiled step, device {total:.2f} ms: " + "; ".join(
+            f"{name} {ms:.2f}" for name, ms in sorted(t["groups"].items(),
+                                                        key=lambda kv: -kv[1])))
 
 
 def rows_cli(got: list[dict], root: str, exp: str, tool: list[str]) -> dict:
@@ -3970,13 +4065,14 @@ def rows_cli(got: list[dict], root: str, exp: str, tool: list[str]) -> dict:
             "launches_rows_tool_per_rank": [g["tool"]["launches"] for g in runs]}
 
 
-def rows_phase(world: int | None = None) -> dict:
+def rows_phase(world: int | None = None, profile: bool = False) -> dict:
     """Phase 14: (a) the T'=1 gradient; (b) ensembles across 2 ranks under
     gloo on one card: E=2 and E=4 held to one process, the trainer and its
     resume, the ensemble tool, all in one spawn. With ``world``
     (``--data-parallel N``): (c) alone, E=2 on N ranks under NCCL, one a
-    card, rows of N / 2, timed. Returns the fbank kernel's launches on its
-    paths."""
+    card, rows of N / 2, timed (``profile``: beside the step without the
+    seed losses' gather and phase 12's step, each with a profiled step).
+    Returns the fbank kernel's launches on its paths."""
     t_phase = time.perf_counter()
     cfg = train_config()
     batch = train_batch(cfg, batch=ROWS_BATCH)
@@ -3985,7 +4081,8 @@ def rows_phase(world: int | None = None) -> dict:
         torch.cuda.empty_cache()
         root = tempfile.mkdtemp(prefix="psla_rows_")
         try:
-            got = spawn_ranks(rows_rank, root, world, "nccl", [2], TIMED_STEPS, None, None)
+            got = spawn_ranks(rows_rank, root, world, "nccl", [2], TIMED_STEPS, None, None,
+                              profile)
         finally:
             shutil.rmtree(root, ignore_errors=True)
         out = {"launches_rows_step_per_rank": rows_steps(got, ref, world, "nccl",
@@ -4030,12 +4127,10 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--profile", action="store_true",
                    help="also print device time by kernel for one dispatch and one "
-                        "train step")
+                        "train step; with --data-parallel N, phase 14 (c)'s breakdown")
     p.add_argument("--data-parallel", type=int, default=None, metavar="N",
                    help="run phases 12 and 14 (c) alone on N cards under NCCL, one rank "
                         "a card, held to the one-process step on one card")
-    p.add_argument("--rows-only", action="store_true",
-                   help="with --data-parallel N, run phase 14 (c) alone")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -4047,10 +4142,9 @@ def main(argv=None) -> int:
         cards = torch.cuda.device_count()
         check(cards >= args.data_parallel, f"{cards} cards for --data-parallel "
                                            f"{args.data_parallel}")
-        if not args.rows_only:
-            dp_phase(None, args.data_parallel, "nccl")
-            torch.cuda.empty_cache()
-        rows_phase(args.data_parallel)
+        dp_phase(None, args.data_parallel, "nccl")
+        torch.cuda.empty_cache()
+        rows_phase(args.data_parallel, args.profile)
         print(f"total {time.perf_counter() - t0:.1f} s")
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": cards}}))

@@ -11,9 +11,10 @@ one process with one card, in a ``torch.distributed`` group:
   * ``make_global_batch(batch, mesh)`` is this rank's share of the global
     batch: the loader of each rank already loads only its own rows
     (``data/loader.py``, sharded by (rank, world)).
-  * ``allgather_host(x)`` gathers the ranks' eval rows so that every rank
-    sees the whole eval set (``allgather_strided`` in the dataset's
-    order); rank 0 writes the artifacts.
+  * ``allgather_host(x)`` concatenates the ranks' rows, and
+    ``gather_valid`` gathers an eval pass's rows so that every rank sees
+    the whole eval set in the dataset's order; rank 0 writes the
+    artifacts.
   * ``broadcast_floats`` and ``barrier`` keep the ranks' host state in step;
     ``broadcast_tensors`` copies one rank's tensors into the others' and
     ``gather_rows`` gathers a tensor on the devices.
@@ -117,17 +118,27 @@ def allgather_host(x) -> np.ndarray:
     return torch.cat(parts).cpu().numpy()
 
 
-def allgather_strided(rows, axis: int = 0) -> np.ndarray:
-    """Every rank's rows of a dataset (along ``axis``), each rank's in its
-    loader's order, in the dataset's order on every rank. A sequential
-    loader shard is strided (``data/loader.py``): rank r's p-th row is the
-    dataset's row W * p + r, so the gathered [W, P] rows come in order with
-    the rank axis moved last. The padded rows' mask takes the same gather.
-    World 1: ``rows``."""
-    gathered = allgather_host(torch.as_tensor(rows).movedim(axis, 0))
-    world = process_info()[1]
-    gathered = gathered.reshape(world, -1, *gathered.shape[1:])
-    return np.moveaxis(gathered.swapaxes(0, 1).reshape(-1, *gathered.shape[2:]), 0, axis)
+def gather_valid(rows, valid, axis: int = 0, mesh: Mesh | None = None) -> np.ndarray:
+    """The valid rows of an eval pass over a dataset, every rank's, in the
+    dataset's order, as a numpy array on every rank. ``rows`` (a tensor or
+    an array) are this rank's along ``axis``: its loader's shard, padded
+    rows included, so that every rank gathers the same shapes; ``valid``
+    marks the real ones. The ranks are ``mesh``'s row (default: every
+    rank). A sequential loader shard is strided (``data/loader.py``): the
+    j-th row of the rank at position p of R is the dataset's row R * j + p,
+    so the gathered [P, R] rows come in order. One rank: ``rows[valid]``."""
+    world, group = (process_info()[1], None) if mesh is None else (mesh.world, mesh.group)
+    rows = torch.as_tensor(rows).movedim(axis, 0)
+    valid = np.asarray(valid)
+    if world > 1:
+        parts = []
+        for t in (rows, torch.as_tensor(valid)):
+            t = t.to(_comm_device(t)).contiguous()
+            gathered = [torch.empty_like(t) for _ in range(world)]
+            dist.all_gather(gathered, t, group=group)
+            parts.append(torch.stack(gathered, dim=1).flatten(0, 1))
+        rows, valid = parts[0], parts[1].cpu().numpy()
+    return np.moveaxis(rows.cpu().numpy()[valid], 0, axis)  # one fetch a pass
 
 
 def gather_rows(t: torch.Tensor, group=None) -> torch.Tensor:

@@ -153,11 +153,12 @@ def ensemble_member(state: EnsembleState, i: int) -> dict:
 
 def gather_seeds(local: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
     """[E, ...]: every member's value from the rows' [E_local, ...] values,
-    in member order (ranks of one row hold the same values). No host sync;
-    a collective over every rank when there are several rows."""
+    in member order, each from the rank at this rank's position in its row
+    (which holds the same data rows). No host sync; a collective over every
+    rank when there are several rows."""
     if mesh is None or mesh.rows == 1:
         return local
-    return gather_rows(local)[::mesh.world].reshape(-1, *local.shape[1:])
+    return gather_rows(local)[mesh.rank::mesh.world].reshape(-1, *local.shape[1:])
 
 
 def make_ensemble_train_step(pre_config: PreprocessConfig, loss_type: str = "BCE",

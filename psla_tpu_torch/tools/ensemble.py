@@ -51,7 +51,7 @@ from psla_tpu_torch.metrics import calculate_stats, d_prime
 from psla_tpu_torch.models import create_model
 from psla_tpu_torch.models.convert import load_variables
 from psla_tpu_torch.parallel.distributed import (
-    allgather_strided,
+    gather_valid,
     is_primary,
     maybe_initialize,
     process_info,
@@ -104,30 +104,23 @@ def _batches(loader: AudioLoader, device: torch.device):
 
 
 class _Rows:
-    """The rows of an eval pass: without a group, each batch's valid rows;
-    on several ranks, every row of this rank's shard (padding included, so
-    that every rank gathers the same shapes) and then every rank's valid
-    rows in the dataset's order (``parallel.distributed.allgather_strided``)."""
+    """The rows of an eval pass: each batch's rows with its padding mask,
+    then every rank's valid rows in the dataset's order
+    (``parallel.distributed.gather_valid``)."""
 
-    def __init__(self):
-        self.several = process_info()[1] > 1
+    def __init__(self, axis: int = 0):
+        self.axis = axis
         self.preds, self.targets, self.valid = [], [], []
 
-    def add(self, host_batch, pred: torch.Tensor, axis: int = 0):
-        n_valid = int(host_batch["n_valid"])
-        n = pred.shape[axis] if self.several else n_valid
-        self.valid.append(np.arange(n) < n_valid)
-        self.preds.append(pred.narrow(axis, 0, n))
-        self.targets.append(host_batch["labels"][:n])
+    def add(self, host_batch, pred: torch.Tensor):
+        self.preds.append(pred)
+        self.targets.append(host_batch["labels"])
+        self.valid.append(np.arange(pred.shape[self.axis]) < int(host_batch["n_valid"]))
 
-    def result(self, axis: int = 0) -> tuple[np.ndarray, np.ndarray]:
-        pred = torch.cat(self.preds, dim=axis).cpu().numpy()  # one fetch a pass
-        target = np.concatenate(self.targets)
-        if not self.several:
-            return pred, target
-        keep = allgather_strided(np.concatenate(self.valid))
-        return (allgather_strided(pred, axis).compress(keep, axis),
-                allgather_strided(target)[keep])
+    def result(self) -> tuple[np.ndarray, np.ndarray]:
+        valid = np.concatenate(self.valid)
+        return (gather_valid(torch.cat(self.preds, dim=self.axis), valid, self.axis),
+                gather_valid(np.concatenate(self.targets), valid))
 
 
 def predict(model: torch.nn.Module, loader: AudioLoader, pre_config: PreprocessConfig,
@@ -159,12 +152,12 @@ def predict_stacked(models: list[torch.nn.Module], loader: AudioLoader,
     device = torch.device(device)
     models = [place_model(m, device).eval() for m in models]
     eval_config = pre_config.eval_variant()
-    rows = _Rows()
+    rows = _Rows(axis=1)
     with _batches(loader, device) as batches:
         for host_batch, batch in batches:
             logmel = preprocess_eval(_wav_batch(batch, device), eval_config)
-            rows.add(host_batch, torch.stack([m(logmel) for m in models]), axis=1)
-    return rows.result(axis=1)
+            rows.add(host_batch, torch.stack([m(logmel) for m in models]))
+    return rows.result()
 
 
 def scores(pred: np.ndarray, target: np.ndarray) -> tuple[float, float]:
@@ -262,16 +255,15 @@ def eval_parser(description: str) -> argparse.ArgumentParser:
     return p
 
 
-def eval_setup(args) -> tuple[AudioLoader, PreprocessConfig, int]:
+def eval_setup(args, shard: bool = False) -> tuple[AudioLoader, PreprocessConfig, int]:
     """(eval loader, eval preprocessing, class count) from the shared flags.
-    For a tool that takes ``--num-devices`` (this one), on several ranks the
-    loader is this rank's strided shard, and the batch size (the global
-    batch) is split over the ranks."""
+    With ``shard``, on several ranks the loader is this rank's strided
+    shard, and the batch size (the global batch) is split over the ranks."""
     cfg = from_preset(args.preset) if args.preset else ExperimentConfig()
     if args.target_length:
         cfg = dataclasses.replace(cfg, target_length=args.target_length)
     pre = cfg.preprocess_config().eval_variant()
-    rank, world = process_info() if hasattr(args, "num_devices") else (0, 1)
+    rank, world = process_info() if shard else (0, 1)
     batch_size = args.batch_size or cfg.batch_size
     if batch_size % world:
         raise ValueError(f"--batch-size {batch_size} is the global batch and is not "
@@ -310,7 +302,7 @@ def run(argv=None) -> dict:
     if args.num_devices is not None and args.num_devices != world:
         raise ValueError(f"--num-devices {args.num_devices} under a launcher's "
                          f"{world}-rank group: leave it out or give {world}")
-    loader, pre, n_class = eval_setup(args)
+    loader, pre, n_class = eval_setup(args, shard=True)
     return ensemble_eval(args.checkpoints, loader, pre, model_name=args.model,
                          n_class=n_class, eff_b=args.eff_b, out_dir=args.out_dir,
                          stacked=not args.sequential, device=args.device,

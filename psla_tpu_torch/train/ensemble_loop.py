@@ -52,8 +52,8 @@ import torch
 from psla_tpu_torch.data.device_prefetch import prefetch_to_device
 from psla_tpu_torch.metrics import calculate_stats
 from psla_tpu_torch.parallel.distributed import (
-    allgather_host,
     barrier,
+    gather_valid,
     is_primary,
     process_info,
 )
@@ -61,13 +61,14 @@ from psla_tpu_torch.parallel.ensemble import (
     EnsembleState,
     ensemble_layout,
     ensemble_member,
+    gather_seeds,
     init_ensemble_state,
     local_members,
     make_ensemble_eval_step,
     make_ensemble_train_step,
     place_members,
 )
-from psla_tpu_torch.parallel.mesh import make_mesh
+from psla_tpu_torch.parallel.mesh import Mesh, make_mesh
 from psla_tpu_torch.train.loop import Trainer
 from psla_tpu_torch.train.step import TrainDraws, draw_train, step_generator
 
@@ -89,15 +90,21 @@ class EnsembleTrainer(Trainer):
         self._seed_rows: dict[str, str] = {}  # seed_result.csv, keyed rows
         super().__init__(config, train_loader, val_loader, eval_loader, device=device)
 
-    def _build_steps(self):
-        """The ensemble mesh (``ensemble_layout``'s rows over the ranks) and
-        the steps on it; on several ranks, first the loaders' shards."""
+    def _make_mesh(self) -> Mesh:
+        """The ensemble mesh: ``ensemble_layout``'s rows over the ranks; on
+        several ranks, first the loaders' shards are checked against it."""
         rank, world = process_info()
         rows, position, per_row = ensemble_layout(self.num_seeds, world, rank, world)
         if world > 1:
             self._check_loader_shards(position, per_row)
-        self.mesh = make_mesh(self.config.num_devices, self.device, ensemble=rows)
-        self.members = local_members(self.num_seeds, self.mesh)
+        return make_mesh(self.config.num_devices, self.device, ensemble=rows)
+
+    @property
+    def members(self) -> range:
+        """The global indices of this rank's members (its row's)."""
+        return local_members(self.num_seeds, self.mesh)
+
+    def _build_steps(self):
         self.train_step = make_ensemble_train_step(self.pre_config, self.config.loss,
                                                    self.mesh)
         self.eval_step = make_ensemble_eval_step(self.pre_config, self.config.loss)
@@ -232,28 +239,23 @@ class EnsembleTrainer(Trainer):
         batch on each rank). Returns the seed mean's (stats, loss), which the
         trainer and the protocol read; the members' mAPs go to
         seed_result.csv. On several ranks each evaluates its loader shard
-        with its row's members, every rank gets all members' rows in the
-        dataset's order (``_gathered``), and rank 0 writes."""
-        several = self.mesh.rows * self.mesh.world > 1
+        with its row's members; every rank gets all members' rows in the
+        dataset's order (``gather_seeds`` over the rows, then
+        ``gather_valid`` over the positions) and rank 0 writes."""
         preds, targets, losses, valid = [], [], [], []
         with contextlib.closing(prefetch_to_device(
                 iter(loader), self.device, depth=self.config.device_prefetch)) as batches:
             for host_batch, batch in batches:
                 out, per_sample = self.eval_step(state, batch)
-                n_rows = n_valid = int(host_batch["n_valid"])
-                if several:  # the padded rows too: every rank gathers the same shapes
-                    n_rows = out.shape[1]
-                    valid.append(np.arange(n_rows) < n_valid)
-                preds.append(out[:, :n_rows])
-                targets.append(host_batch["labels"][:n_rows])
-                losses.append(per_sample[:, :n_rows])
-        output = torch.cat(preds, dim=1).cpu().numpy()  # [E, N, C], one fetch a pass
-        target = np.concatenate(targets)
-        loss_rows = torch.cat(losses, dim=1).cpu().numpy()
-        if several:
-            keep = self._gathered(np.concatenate(valid)[None])[0]
-            output, loss_rows = (self._gathered(a)[:, keep] for a in (output, loss_rows))
-            target = self._gathered(target[None])[0][keep]
+                preds.append(out)
+                targets.append(host_batch["labels"])
+                losses.append(per_sample)
+                valid.append(np.arange(out.shape[1]) < int(host_batch["n_valid"]))
+        valid = np.concatenate(valid)
+        output, loss_rows = (  # [E, N, C] and [E, N]
+            gather_valid(gather_seeds(torch.cat(rows, dim=1), self.mesh), valid, axis=1,
+                         mesh=self.mesh) for rows in (preds, losses))
+        target = gather_valid(np.concatenate(targets), valid, mesh=self.mesh)
         loss = float(np.mean(loss_rows))
         member_stats = [calculate_stats(output[i], target) for i in range(self.num_seeds)]
         mean_pred = output.mean(axis=0)
@@ -267,21 +269,6 @@ class EnsembleTrainer(Trainer):
         print(f"[{epoch}] seed mAPs: " + " ".join(f"{m:.4f}" for m in member_maps)
               + f" | seed-ensemble mAP: {ens_map:.4f}")
         return stats, loss
-
-    def _gathered(self, local: np.ndarray) -> np.ndarray:
-        """[E, N, ...]: every rank's [E_local, P, ...] rows (its row's
-        members on its loader shard, padded rows included) with the members
-        in order and the data rows in the dataset's order. A rank at
-        position p of a row of R ranks holds the dataset's rows R * j + p
-        (a strided loader shard, ``parallel.distributed.allgather_strided``); the other rows
-        hold the same data rows for other members. A [1, P] array (the
-        targets, the padding mask) comes back as [rows, N]."""
-        rest = local.shape[2:]
-        gathered = allgather_host(np.ascontiguousarray(np.moveaxis(local, 1, 0)))
-        # [rows, R, P, E_local, ...] by global rank, -> [rows, E_local, P, R, ...]
-        gathered = gathered.reshape(self.mesh.rows, self.mesh.world, -1, len(local), *rest)
-        gathered = gathered.transpose(0, 3, 2, 1, *range(4, gathered.ndim))
-        return gathered.reshape(-1, gathered.shape[2] * gathered.shape[3], *rest)
 
     def _write_validation(self, epoch, target, mean_pred, output, eval_target: bool):
         """The target matrix, the seed mean's predictions and each member's

@@ -53,12 +53,12 @@ from psla_tpu_torch.models.pretrained import (
     resolve_imagenet_checkpoint,
 )
 from psla_tpu_torch.parallel.distributed import (
-    allgather_strided,
     barrier,
     broadcast_floats,
+    gather_valid,
     is_primary,
 )
-from psla_tpu_torch.parallel.mesh import make_mesh
+from psla_tpu_torch.parallel.mesh import Mesh, make_mesh
 from psla_tpu_torch.train.meters import AverageMeter
 from psla_tpu_torch.train.optim import psla_lr_schedule
 from psla_tpu_torch.train.state import TrainState, create_train_state, replicate_state
@@ -100,7 +100,7 @@ class Trainer:
         self.val_loader = val_loader
         self.eval_loader = eval_loader
         self.device = torch.device(device)
-        self.mesh = make_mesh(config.num_devices, self.device)
+        self.mesh = self._make_mesh()
 
         self.exp_dir = os.path.abspath(config.exp_dir)
         if is_primary():
@@ -134,6 +134,11 @@ class Trainer:
         # epoch-end loss fetch, which waits for the card)
         self.meters: dict[str, AverageMeter] = {}
         self.train_seconds: dict[int, float] = {}
+
+    def _make_mesh(self) -> Mesh:
+        """This rank's mesh: one row of every rank (the ensemble trainer
+        lays out its own)."""
+        return make_mesh(self.config.num_devices, self.device)
 
     def _build_steps(self):
         """The train and eval steps (the ensemble trainer builds its own)."""
@@ -520,32 +525,21 @@ class Trainer:
         dropped. The loss is the mean of per-sample losses (the reference
         averages per-batch means; identical for equal batch sizes). On
         several ranks each evaluates its own shard, every rank gets all rows
-        in the dataset's order (``parallel.distributed.allgather_strided``)
-        and rank 0 writes."""
+        in the dataset's order (``parallel.distributed.gather_valid``) and
+        rank 0 writes."""
         preds, targets, losses, valid = [], [], [], []
         with contextlib.closing(prefetch_to_device(
                 iter(loader), self.device, depth=self.config.device_prefetch)) as batches:
             for host_batch, batch in batches:
                 out, per_sample = self.eval_step(state, batch)
-                n_valid = int(host_batch["n_valid"])
-                if self.mesh.world == 1:
-                    preds.append(out[:n_valid])
-                    targets.append(host_batch["labels"][:n_valid])
-                    losses.append(per_sample[:n_valid])
-                else:
-                    preds.append(out)
-                    targets.append(host_batch["labels"])
-                    losses.append(per_sample)
-                    valid.append(np.arange(len(out)) < n_valid)
-        if self.mesh.world == 1:
-            output = torch.cat(preds).cpu().numpy()  # one fetch a pass
-            target = np.concatenate(targets)
-            loss_rows = torch.cat(losses).cpu().numpy()
-        else:
-            keep = allgather_strided(np.concatenate(valid))
-            output, target, loss_rows = (
-                allgather_strided(rows)[keep]
-                for rows in (torch.cat(preds), np.concatenate(targets), torch.cat(losses)))
+                preds.append(out)
+                targets.append(host_batch["labels"])
+                losses.append(per_sample)
+                valid.append(np.arange(len(out)) < int(host_batch["n_valid"]))
+        valid = np.concatenate(valid)
+        output, target, loss_rows = (
+            gather_valid(rows, valid, mesh=self.mesh)
+            for rows in (torch.cat(preds), np.concatenate(targets), torch.cat(losses)))
         loss = float(np.mean(loss_rows))
         stats = calculate_stats(output, target)
 

@@ -31,7 +31,19 @@ member in a row bit for bit. The CLI
 one process computes: its checkpoints are held to the one-process run's
 within 1e-9 whatever the run was resumed from. ``tools/ensemble`` on 2
 ranks: the one-process predictions within 1e-5 (tests/test_serve.py:197).
+
+E=2 on W=4 is also held to the JAX package's sharded ensemble step
+(``build_ensemble_train_step_single_rng`` on an ('ensemble', 'data') mesh
+of 2 x 2 of the 8 virtual CPU devices), as tests/test_torch_ensemble.py
+holds the one-process step: float32, drop-connect off, each member from
+its seed's shared numpy-made variables and given the draws JAX derives
+for its global index, 2 steps; each seed's loss within 1e-4 on the first
+step and 2e-2 over the run (tests/test_torch_twin.py's bars). JAX's fbank
+computes in float32 (``psla_tpu/frontend/fbank.py``), so the float64 bars
+do not apply to this comparison.
 """
+
+import concurrent.futures
 
 import dataclasses
 import json
@@ -43,23 +55,88 @@ import pytest
 import torch
 import torch.multiprocessing
 
+import jax
+
+from psla_tpu.frontend.pipeline import PreprocessConfig as JaxPreprocessConfig
+from psla_tpu.parallel import ensemble as jax_ensemble
 from psla_tpu.parallel.ensemble import ensemble_layout as jax_ensemble_layout
 from psla_tpu.parallel.mesh import make_mesh as jax_make_mesh
+from psla_tpu.parallel.mesh import shard_batch as jax_shard_batch
+from psla_tpu.train.optim import make_optimizer as jax_make_optimizer
 from psla_tpu_torch import cli
 from psla_tpu_torch.config import ExperimentConfig
 from psla_tpu_torch.models.convert import CHECKPOINT_FILE, from_jax_variables
 from psla_tpu_torch.parallel import mesh as port_mesh
 from psla_tpu_torch.parallel.ensemble import ensemble_layout
 from psla_tpu_torch.tools import ensemble as ensemble_tool
+from psla_tpu_torch.train.step import TrainDraws
+from tests import test_torch_ensemble as one_rank
 from tests import torch_ensemble_ranks_worker as worker
 from tests.synth import build_corpus
-from tests.test_torch_augment import tone_batch
+from tests.test_torch_augment import jax_preprocess_draws, tone_batch
 from tests.torch_port_fixtures import jax_variables
 
 torch.set_num_threads(2)
 
 T, B, N_CLASS, HEADS = 64, 4, 4, 4
 LAYOUTS = [(3, 2), (2, 2), (4, 2), (2, 4)]
+JAX_RNG = 42  # the base key of the JAX-held steps
+
+
+def _held(n: int) -> dict:
+    """The JAX-held E=2 steps' inputs (tests/test_torch_ensemble.py's):
+    each seed's state_dict, two batches, and for each step every member's
+    draws as JAX's step derives them, ``split(fold_in(fold_in(rng, m),
+    step))[0]`` for global member m."""
+    rng = jax.random.PRNGKey(JAX_RNG)
+    batches = one_rank.batches(n)
+    f = ExperimentConfig(target_length=T).preprocess_config().fbank.num_mel_bins
+    return {
+        "heads": one_rank.HEADS, "lr": one_rank.LR, "aug": one_rank.AUG, "batches": batches,
+        "state_dicts": [from_jax_variables(jax_variables(one_rank.HEADS, s, N_CLASS), N_CLASS)
+                        for s in one_rank.SEEDS],
+        "draws": [[TrainDraws(jax_preprocess_draws(jax.random.split(jax.random.fold_in(
+            jax.random.fold_in(rng, m), i))[0], B, T, f), None) for m in range(2)]
+            for i in range(len(batches))],
+    }
+
+
+def _jax_side(n: int, held_path: str) -> dict:
+    """Run in a thread while the ranks train: the held steps' inputs
+    (``_held``), written to ``held_path`` for the 4-rank world, then JAX's
+    sharded step compiled and run on them: its losses."""
+    held = _held(n)
+    torch.save(held, held_path + ".tmp")
+    os.replace(held_path + ".tmp", held_path)
+    return _jax_rows_losses(_jax_rows_step(held["batches"][0]), held)
+
+
+def _jax_rows_step(batch: dict):
+    """JAX's sharded E=2 train step on an ('ensemble', 'data') mesh of 2 x 2
+    virtual CPU devices, compiled: (step, mesh, optimizer)."""
+    mesh = jax_make_mesh(num_devices=4, ensemble=2)
+    tx = jax_make_optimizer(lambda step: one_rank.LR)
+    cfg = JaxPreprocessConfig(target_length=T, **one_rank.AUG)
+    state = one_rank.jax_train_state(
+        [jax_variables(one_rank.HEADS, s, N_CLASS) for s in one_rank.SEEDS], tx, mesh)
+    # LLVM's expensive passes keep IEEE semantics: the same bits, compiled faster
+    step = jax_ensemble.build_ensemble_train_step_single_rng(
+        one_rank.jax_model(), tx, cfg, "BCE", mesh, 2).lower(
+        state, jax_shard_batch(batch, mesh), jax.random.PRNGKey(JAX_RNG)).compile(
+        {"xla_llvm_disable_expensive_passes": True})
+    return step, mesh, tx
+
+
+def _jax_rows_losses(compiled_step, held: dict) -> dict:
+    step, mesh, tx = compiled_step
+    state = one_rank.jax_train_state(
+        [jax_variables(one_rank.HEADS, s, N_CLASS) for s in one_rank.SEEDS], tx, mesh)
+    losses, seed_losses = [], []
+    for batch in held["batches"]:
+        state, m = step(state, jax_shard_batch(batch, mesh), jax.random.PRNGKey(JAX_RNG))
+        losses.append(float(m["loss"]))
+        seed_losses.append(np.asarray(m["seed_loss"]))
+    return {"loss": np.array(losses), "seed_loss": np.stack(seed_losses)}
 
 
 def _spec(root) -> dict:
@@ -86,7 +163,7 @@ def _spec(root) -> dict:
     backbone = str(root / "backbone.pth")
     torch.save(from_jax_variables(jax_variables(HEADS, 31, N_CLASS), N_CLASS), backbone)
     return {
-        "T": T, "n_class": N_CLASS, "batches": batches,
+        "T": T, "n_class": N_CLASS, "batches": batches, "held_path": str(root / "held.pt"),
         "trainer_config": dict(
             data_train=datafile, data_val=val_file, label_csv=label_csv, n_class=N_CLASS,
             eff_b=0, att_head=HEADS, target_length=T, batch_size=B, num_workers=1,
@@ -110,9 +187,12 @@ def tool_argv(checkpoints, datafile, label_csv, out_dir, *extra) -> list[str]:
 @pytest.fixture(scope="module")
 def worlds(tmp_path_factory):
     """The spec, each world's ranks' results, and the one-process
-    references (computed here while the ranks run); the files are removed
-    after the module's tests."""
+    references and JAX's (computed here while the ranks run); the files are
+    removed after the module's tests."""
     root = tmp_path_factory.mktemp("ensemble_ranks")
+    n = ExperimentConfig(target_length=T).preprocess_config().fbank.buffer_length(T)
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    jax_side = pool.submit(_jax_side, n, str(root / "held.pt"))
     spec = _spec(root)
     spec_path = str(root / "spec.pt")
     torch.save(spec, spec_path)
@@ -147,6 +227,8 @@ def worlds(tmp_path_factory):
     torch.set_num_threads(1)
     cli.run(worker.cli_argv(spec, resumed, 2, "--resume"))
     torch.set_num_threads(2)
+    one["jax"] = jax_side.result()
+    pool.shutdown()
     yield spec, got, one, root
     shutil.rmtree(root, ignore_errors=True)
 
@@ -188,6 +270,25 @@ def test_layout_steps_match_one_process(worlds, seeds, world):
     # the members are apart: each keeps the head of its own seed
     w = next(k for k, v in ref["stacked"][1].items() if k.startswith("attention.") and v.dim() > 2)
     assert float((ref["stacked"][1][w][0] - ref["stacked"][1][w][1]).abs().max()) > 1e-3
+
+
+def test_rows_of_ranks_match_the_jax_sharded_step(worlds):
+    """E=2 on two rows of 2 ranks against JAX's step on the 2 x 2 mesh: every
+    seed's loss, and the loss as the mean over both seeds, on every rank."""
+    _, got, one = worlds[:3]
+    want = one["jax"]
+    for rank, g in enumerate(got[4]):
+        seed_loss, loss = g["held"]["seed_loss"].numpy(), g["held"]["loss"].numpy()
+        assert seed_loss.shape == want["seed_loss"].shape == (2, 2)
+        np.testing.assert_array_equal(loss, seed_loss.mean(1).astype(loss.dtype))
+        diffs = np.abs(seed_loss - want["seed_loss"])
+        print(f"rank {rank}: seed losses {seed_loss.tolist()} vs JAX's "
+              f"{want['seed_loss'].tolist()}: first step {diffs[0].max():.3g}, run "
+              f"{diffs.max():.3g}; mean {np.abs(loss - want['loss']).max():.3g}")
+        assert diffs[0].max() < 1e-4 and diffs.max() < 2e-2
+        assert np.abs(loss - want["loss"])[0] < 1e-4 and np.abs(loss - want["loss"]).max() < 2e-2
+    # the seeds differ by more than the first step's bar, so it sees their order
+    assert np.abs(want["seed_loss"][0, 0] - want["seed_loss"][0, 1]) > 1e-4
 
 
 @pytest.mark.parametrize("seeds,world", LAYOUTS, ids=[f"E{e}-W{w}" for e, w in LAYOUTS])

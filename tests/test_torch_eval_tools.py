@@ -199,7 +199,7 @@ def test_jax_command_lines_parse(monkeypatch, tool, extra):
     module = {"ensemble": ensemble, "weight_averaging": weight_averaging}[tool]
     run = {"ensemble": "ensemble_eval", "weight_averaging": "weight_average_eval"}[tool]
     seen = {}
-    monkeypatch.setattr(module, "eval_setup", lambda args: ("loader", "pre", 2))
+    monkeypatch.setattr(module, "eval_setup", lambda args, shard=False: ("loader", "pre", 2))
     monkeypatch.setattr(module, run, lambda checkpoints, *a, **kw: seen.update(
         checkpoints=checkpoints, **kw))
     assert module.main(["ckpt0", "ckpt1"] + JAX_COMMON + extra) == 0

@@ -6,7 +6,10 @@ E = 3, 2 and 4 (one row of both ranks, two rows of one member, two rows of
 two members), then runs ``cli.run --ensemble-seeds 2`` for an epoch, its
 resume to a second, the resume of a one-process run's first epoch, and
 ``tools/ensemble``. The 4-rank world trains E = 2 on two rows of two
-ranks, then builds the trainer on loaders sharded by the global rank. Each rank saves its results to ``{out_dir}/world{W}_rank{r}.pt``.
+ranks, runs ``held_steps`` (E = 2 in float32 on the draws of the JAX
+package's sharded step), then builds the trainer on loaders sharded by the
+global rank. Each rank saves its results to
+``{out_dir}/world{W}_rank{r}.pt``.
 ``ensemble_steps`` also computes the one-process references (at world 1)
 in the test process. This module imports torch and the port only, so a
 spawned rank starts without JAX.
@@ -24,11 +27,21 @@ import torch
 
 from psla_tpu_torch import cli
 from psla_tpu_torch.config import ExperimentConfig
+from psla_tpu_torch.frontend.pipeline import PreprocessConfig
+from psla_tpu_torch.models import create_model
 from psla_tpu_torch.parallel import distributed
-from psla_tpu_torch.parallel.ensemble import ensemble_member
-from psla_tpu_torch.parallel.mesh import shard_batch
+from psla_tpu_torch.parallel.ensemble import (
+    EnsembleState,
+    ensemble_layout,
+    ensemble_member,
+    local_members,
+    make_ensemble_train_step,
+    place_members,
+)
+from psla_tpu_torch.parallel.mesh import make_mesh, shard_batch
 from psla_tpu_torch.tools import ensemble as ensemble_tool
 from psla_tpu_torch.train.ensemble_loop import EnsembleTrainer
+from psla_tpu_torch.train.state import create_train_state
 from tests.torch_distributed_worker import audited_run
 
 # the seed counts each world trains
@@ -92,6 +105,15 @@ def cli_argv(spec: dict, exp_dir: str, epochs: int, *extra) -> list[str]:
             *extra]
 
 
+def wait_for(path: str, seconds: float = 600):
+    """Wait until the test process has written ``path``."""
+    deadline = time.monotonic() + seconds
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"the test process never wrote {path}")
+        time.sleep(0.1)
+
+
 def cli_runs(spec: dict) -> dict:
     """``cli.run --ensemble-seeds 2`` under this group (a launcher's path):
     one epoch, audited; its resume to two epochs; the resume of the
@@ -105,11 +127,7 @@ def cli_runs(spec: dict) -> dict:
         shutil.copytree(exp, copies["ranks_epoch1"])
     distributed.barrier("copied")
     out["resumed"] = cli.run(cli_argv(spec, exp, 2, "--resume"))
-    deadline = time.monotonic() + 600
-    while not os.path.exists(os.path.join(copies["one_epoch1"], "DONE")):
-        if time.monotonic() > deadline:
-            raise TimeoutError("the test process's first epoch never came")
-        time.sleep(0.1)
+    wait_for(os.path.join(copies["one_epoch1"], "DONE"))
     out["from_one_process"] = cli.run(cli_argv(spec, copies["one_epoch1"], 2, "--resume"))
     out["tool"] = ensemble_tool.run(spec["tool_argv"])
     return out
@@ -130,6 +148,35 @@ def refused_loaders(spec: dict, exp_dir: str) -> str:
     return ""
 
 
+def held_steps(spec: dict) -> dict:
+    """E = 2 on this world's rows (``ensemble_layout``, ``make_mesh``,
+    ``local_members``, ``place_members``, ``make_ensemble_train_step``),
+    float32, drop-connect off, from the test process's file: each member's
+    weights (the JAX package's variables of its seed) and, for each step,
+    every member's draws as JAX's sharded step derives them; a rank takes
+    its local members' by their global indices. The seed losses and the mean
+    loss of each step."""
+    wait_for(spec["held_path"])
+    held = torch.load(spec["held_path"], weights_only=False)
+    rank, world = distributed.process_info()
+    mesh = make_mesh(device="cpu", ensemble=ensemble_layout(2, world, rank, world)[0])
+    members = local_members(2, mesh)
+    models = [create_model("efficientnet", label_dim=spec["n_class"], eff_b=0,
+                           head_num=held["heads"], drop_connect_rate=0.0) for _ in members]
+    for model, i in zip(models, members):
+        model.load_state_dict(held["state_dicts"][i])
+    state = place_members(EnsembleState(
+        [create_train_state(m, lambda step: held["lr"], device="cpu") for m in models], mesh))
+    step = make_ensemble_train_step(PreprocessConfig(target_length=spec["T"], **held["aug"]),
+                                    "BCE", mesh)
+    losses, seed_losses = [], []
+    for batch, draws in zip(held["batches"], held["draws"]):
+        state, metrics = step(state, shard_batch(batch, mesh), [draws[i] for i in members])
+        losses.append(metrics["loss"])
+        seed_losses.append(metrics["seed_loss"])
+    return {"loss": torch.stack(losses), "seed_loss": torch.stack(seed_losses)}
+
+
 def run_rank(rank: int, world: int, init_method: str, spec_path: str, out_dir: str):
     torch.set_num_threads(1)
     assert distributed.maybe_initialize(rank=rank, world_size=world, init_method=init_method,
@@ -141,6 +188,7 @@ def run_rank(rank: int, world: int, init_method: str, spec_path: str, out_dir: s
         if world == 2:
             out["cli"] = cli_runs(spec)
         else:
+            out["held"] = held_steps(spec)
             out["refused"] = refused_loaders(spec, os.path.join(out_dir, "refused"))
         torch.save(out, os.path.join(out_dir, f"world{world}_rank{rank}.pt"))
     finally:
