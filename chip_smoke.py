@@ -29,8 +29,14 @@ result line):
    clip, a malformed body) through ``make_server``; the launch counts are
    set to 0 just before and read just after. The answers are checked
    against the plain fbank path on the same members, then the clips/s of
-   full 16-clip dispatches are timed in float32 and bfloat16.
-   ``--profile`` adds a torch.profiler table of one float32 dispatch.
+   full 16-clip dispatches are timed in float32 and bfloat16. The engines
+   run serving copies (``models.layers.for_inference``: weights held in
+   the dtype they compute in, BatchNorm folded): the bf16 dispatch is held
+   to the per-call bf16 modules on the same log-mel (expected bit-equal, at
+   1e-4), one fbank launch (counted), and each side's dtype casts in one
+   dispatch are counted (the engine's of weights must be 0).
+   ``--profile`` adds a torch.profiler table of one dispatch in each dtype,
+   with its ``copy_`` and ``_to_copy`` counts.
 5. The fused MBConv kernels at full width: the first seeded B2 member's
    eval forward on a 16-clip log-mel batch from the fbank kernel, with
    each of the 23 blocks' input and output captured. One sweep through
@@ -92,14 +98,21 @@ result line):
    mean, a finite mAP. ``compute_norm_stats`` through the kernel within
    2e-4 of the same through the plain fbank. ``psla-torch-predict`` on a
    60 s clip within 1e-4 of ``predict_long`` with the plain fbank.
-   ``psla-torch-export`` of 2 members, loaded and run at batch 16 by a
-   subprocess that imports torch alone (no module of this repo, no CPU
-   device literal or tensor left in the moved program), within 1e-4 of
-   ``InferenceEngine.batch_probs`` through the kernel; both timed a call.
+   ``psla-torch-export`` of 2 members at its bf16 default and with
+   ``--dtype float32``, both loaded and run at batch 16 by one subprocess
+   that imports torch alone (no module of this repo, no CPU device literal
+   or tensor left in the moved programs): the bf16 artifact within 1e-6 of
+   the live bf16 program it was traced from ('gemm' fbank), its distance
+   from the live bf16 engine (fbank kernel) printed; the float32 artifact
+   within 1e-4 of ``InferenceEngine.batch_probs`` through the kernel; each
+   artifact and each live engine timed a call, the sizes printed. Then
+   ``python -m psla_tpu_torch.tools.export_chipcheck`` at its defaults (B2,
+   527 classes, T=1056, batch 4, bf16) in a subprocess: its JSON line
+   must say ``"ok": true``.
    ``Trainer.init_state`` under ``impretrain`` from a seeded
    ImageNet-layout B2 file named by ``PSLA_TPU_IMAGENET_CKPT``: the stem
    is the RGB sum. ``--profile`` adds the device time by kernel of one
-   artifact call and one live call.
+   call of each artifact and each live engine.
 9. The FSD50K recipe and the tools on the card (the fsd50k preset: B2, 4
    heads, 200 classes, T=3000, batch 24, float32 with TF32 off; mixup 0.5,
    SpecAugment 48/192). (a) ``prep_fsd`` on a seeded FSD50K-layout root
@@ -270,6 +283,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing
 import torch.nn.functional as F
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from psla_tpu_torch import assets, cli
 from psla_tpu_torch.config import from_preset
@@ -819,9 +833,82 @@ def serving_phase(profile: bool) -> int:
     print(f"full {BATCH}-clip dispatch, bfloat16, {len(SEEDS)} members: "
           f"{ms:.2f} ms, {rate:.1f} clips/s; max abs vs float32 "
           f"{float(np.abs(probs16 - probs32).max()):.3e}")
+    bf16_held_to_per_call(bf16, sds, config)
     if profile:
         profile_dispatch(bf16)
     return launches
+
+
+class CountCasts(TorchDispatchMode):
+    """Counts the dtype casts of the calls run under it: all of them, and
+    those whose source shares its storage with one of ``weights``."""
+
+    def __init__(self, weights):
+        super().__init__()
+        self.ptrs = {t.untyped_storage().data_ptr() for t in weights}
+        self.casts = self.weight_casts = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        # under inference_mode a cast reaches the mode as aten.to, else as _to_copy
+        if (func.overloadpacket in (torch.ops.aten._to_copy, torch.ops.aten.to)
+                and out is not args[0] and out.dtype != args[0].dtype):
+            self.casts += 1
+            self.weight_casts += args[0].untyped_storage().data_ptr() in self.ptrs
+        return out
+
+
+def bf16_held_to_per_call(engine: InferenceEngine, sds: list[dict], config):
+    """The bf16 engine's dispatch (its serving copies, weights cast once:
+    ``layers.for_inference``) against the per-call bf16 modules, which cast
+    every weight at each call, on the same log-mel: max abs (expected 0,
+    held at SERVE_ATOL), the fbank launches of the dispatch, each side's
+    dtype casts in one dispatch, and the dispatch's work timed on each side
+    (the per-call modules compute as the engine did before it held serving
+    copies)."""
+    rng = np.random.default_rng(12)
+    n = engine.chunk_samples
+    wav = np.stack([tones(rng, n) for _ in range(engine.batch_size)])
+    mean = wav.mean(axis=1).astype(np.float32)
+    lengths = np.full(engine.batch_size, n, np.int32)
+    fbank_cuda.LAUNCHES = 0
+    got = engine.batch_probs(wav, mean, lengths)
+    launches = fbank_cuda.LAUNCHES
+    modules = [member(sd, torch.bfloat16).to(DEVICE) for sd in sds]
+    to = dict(device=DEVICE)
+    args = (torch.from_numpy(wav).to(**to), torch.from_numpy(mean).to(**to),
+            torch.from_numpy(lengths).to(**to))
+    with torch.inference_mode():
+        logmel = _chunk_logmel(*args, config)
+        acc = modules[0](logmel).float()
+        for m in modules[1:]:
+            acc = acc + m(logmel).float()
+        want = (acc / len(modules)).cpu().numpy()
+        casts = {}
+        for what, members in (("engine", engine.members), ("per-call modules", modules)):
+            weights = [t for m in members for t in (*m.parameters(), *m.buffers())]
+            with CountCasts(weights) as c:
+                ensemble_probs(members, *args, config)
+                torch.cuda.synchronize()
+            casts[what] = c
+        # the per-call modules compute as the engine did before it held
+        # serving copies
+        times = {what: cuda_ms(lambda: ensemble_probs(members, *args, config), reps=10)
+                 for what, members in (("serving copies", engine.members),
+                                       ("per-call modules", modules))}
+    err = float(np.abs(got - want).max())
+    print("bfloat16 dispatch's work from the card's waveforms (CUDA events, host launch "
+          "time included): " + ", ".join(f"{k} {v:.2f} ms" for k, v in times.items()))
+    print(f"bfloat16 dispatch (serving copies) vs the per-call bf16 modules on the same "
+          f"log-mel: max abs {err:.3e} (bar {SERVE_ATOL}); fbank launches {launches}; "
+          f"dtype casts in one dispatch: engine {casts['engine'].casts} "
+          f"({casts['engine'].weight_casts} of weights), per-call modules "
+          f"{casts['per-call modules'].casts} ({casts['per-call modules'].weight_casts} "
+          f"of weights)")
+    check(err <= SERVE_ATOL, f"bf16 serving copies off the per-call modules by {err}")
+    check(launches == 1, f"bf16 dispatch: {launches} fbank launches, want 1")
+    check(casts["engine"].weight_casts == 0,
+          f"the bf16 engine cast {casts['engine'].weight_casts} weights in a dispatch")
 
 
 def profile_dispatch(engine: InferenceEngine):
@@ -835,7 +922,10 @@ def profile_dispatch(engine: InferenceEngine):
     engine.batch_probs(*args)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         engine.batch_probs(*args)
-    print(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=20))
+    averages = prof.key_averages()
+    print(averages.table(sort_by="self_cuda_time_total", row_limit=20))
+    counts = {e.key: e.count for e in averages if e.key in ("aten::copy_", "aten::_to_copy")}
+    print(f"profiled {engine.members[0].dtype} dispatch: {counts}")
 
 
 # ---------------------------------------------------------------- phase 5
@@ -1757,44 +1847,54 @@ NORM_ATOL = 2e-4  # compute_stats' mean and std, kernel vs plain fbank (the fban
 PREDICT_ATOL = 1e-4  # predict_long's bar
 PREDICT_SECONDS = 60
 EXPORT_MEMBERS = 2
+EXPORT_ATOL = 1e-6  # the artifact vs the live program it was traced from (export_chipcheck)
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
-# Runs the exported artifact with torch alone (no module of this repo): a
-# copy of what a serving host does. Prints one JSON line.
+# Runs exported artifacts with torch alone (no module of this repo): a copy
+# of what a serving host does. Arguments: the inputs' .npz, the output
+# directory, --profile or -, then (name, artifact) pairs. Prints one JSON
+# line.
 BARE_EXPORT = r"""
 import json, sys, time
 import numpy as np, torch
 from torch.export.passes import move_to_device_pass
 cuda = torch.device("cuda")
-program = move_to_device_pass(torch.export.load(sys.argv[1]), cuda)
-code = program.graph_module.code
-held = {**program.state_dict, **program.constants}
-module = program.module()
-x = np.load(sys.argv[2])
-def call():
+x = np.load(sys.argv[1])
+out_dir, profile = sys.argv[2], sys.argv[3] == "--profile"
+loaded = {}
+for name, path in zip(sys.argv[4::2], sys.argv[5::2]):
+    program = move_to_device_pass(torch.export.load(path), cuda)
+    loaded[name] = (program.graph_module.code, {**program.state_dict, **program.constants},
+                    program.module())
+def call(module):
     args = [torch.from_numpy(x[k]).to(cuda) for k in ("wav", "mean", "lengths")]
     with torch.no_grad():
         return module(*args).cpu().numpy()
-tf32 = call()  # PyTorch's default flags: cuDNN convolutions in TF32
-np.save(sys.argv[3].replace(".npy", "_tf32.npy"), tf32)
+for name, (_, _, module) in loaded.items():  # PyTorch's default flags: cuDNN's TF32
+    np.save(f"{out_dir}/{name}_tf32.npy", call(module))
 torch.backends.cudnn.allow_tf32 = False  # float32 convolutions, as the live engine's
 torch.backends.cuda.matmul.allow_tf32 = False
-for _ in range(2):
-    out = call()
-t0 = time.perf_counter()
-for _ in range(10):
-    out = call()
-ms = (time.perf_counter() - t0) / 10 * 1e3
-np.save(sys.argv[3], out)
-if sys.argv[4:] == ["--profile"]:  # device time by kernel over one call
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        call()
-    print(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=15))
-print(json.dumps({
-    "ms": ms, "cpu_literals": code.count("type='cpu'"),
-    "tensors_off_card": sorted(k for k, v in held.items() if v.device.type != "cuda"),
-    "repo_modules": sorted(m for m in sys.modules if m.split(".")[0].startswith("psla_tpu")),
-}))
+result = {}
+for name, (code, held, module) in loaded.items():
+    for _ in range(2):
+        out = call(module)
+    t0 = time.perf_counter()
+    for _ in range(10):
+        out = call(module)
+    ms = (time.perf_counter() - t0) / 10 * 1e3
+    np.save(f"{out_dir}/{name}.npy", out)
+    if profile:  # device time by kernel over one call
+        from torch.profiler import ProfilerActivity, profile as trace
+        with trace(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            call(module)
+        print(name, "artifact")
+        print(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=15))
+    result[name] = {
+        "ms": ms, "cpu_literals": code.count("type='cpu'"),
+        "tensors_off_card": sorted(k for k, v in held.items() if v.device.type != "cuda"),
+        "dtypes": sorted({str(v.dtype) for v in held.values()})}
+result["repo_modules"] = sorted(m for m in sys.modules if m.split(".")[0].startswith("psla_tpu"))
+print(json.dumps(result))
 """
 
 
@@ -1975,12 +2075,19 @@ def eval_phase(profile: bool) -> tuple[int, dict]:
         check(pred_err <= PREDICT_ATOL, f"predict vs plain predict_long: {pred_err}")
         check(n == -(-chunks // 8), f"predict: {n} fbank launches")
 
-        # the torch.export artifact of a 2-member ensemble, loaded by torch alone
-        art = os.path.join(root, "export")
+        # the torch.export artifacts of a 2-member ensemble, bf16 (the CLI's
+        # default) and float32, loaded by torch alone
         ckpts = [a for p in paths[:EXPORT_MEMBERS] for a in ("--ckpt", p)]
-        rc, export_s, _, _ = timed_tool(lambda: export_tool.main(
-            ckpts + ["--out", art, "--device", DEVICE] + width))
-        check(rc == 0, f"export: exit {rc}")
+        arts, export_s = {}, {}
+        for dtype in DTYPES:
+            arts[dtype] = os.path.join(root, f"export_{dtype}")
+            extra = [] if dtype == "bfloat16" else ["--dtype", dtype]
+            rc, export_s[dtype], _, _ = timed_tool(lambda: export_tool.main(
+                ckpts + ["--out", arts[dtype], "--device", DEVICE] + width + extra))
+            check(rc == 0, f"export {dtype}: exit {rc}")
+            with open(os.path.join(arts[dtype], export_tool.META)) as f:
+                got_dtype = json.load(f)["model"]["dtype"]
+            check(got_dtype == dtype, f"export {extra}: meta.json says {got_dtype}")
         rng = np.random.default_rng(17)
         x = np.stack([tones(rng, chunk) for _ in range(BATCH)])
         lengths = np.full(BATCH, chunk, np.int32)
@@ -1992,52 +2099,100 @@ def eval_phase(profile: bool) -> tuple[int, dict]:
         env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
         t0 = time.perf_counter()
         proc = subprocess.run(
-            [sys.executable, "-c", BARE_EXPORT, os.path.join(art, export_tool.ARTIFACT),
-             os.path.join(root, "in.npz"), os.path.join(root, "out.npy")]
-            + (["--profile"] if profile else []),
+            [sys.executable, "-c", BARE_EXPORT, os.path.join(root, "in.npz"), root,
+             "--profile" if profile else "-"]
+            + [a for dtype in DTYPES for a in (dtype, os.path.join(arts[dtype],
+                                                                   export_tool.ARTIFACT))],
             cwd=root, env=env, capture_output=True, text=True, timeout=600)
         bare_s = time.perf_counter() - t0
         check(proc.returncode == 0, f"bare torch load: {proc.stdout[-2000:]} "
                                     f"{proc.stderr[-4000:]}")
         bare = json.loads(proc.stdout.strip().splitlines()[-1])
+        if profile:
+            print("\n".join(proc.stdout.strip().splitlines()[:-1]))
         names = make_name_dict(label_csv)
-        fbank_cuda.LAUNCHES = 0
-        engine = InferenceEngine([member(sd, torch.float32) for sd in sds[:EXPORT_MEMBERS]],
-                                 PreprocessConfig(target_length=TARGET), names,
-                                 batch_size=BATCH, device=DEVICE)
-        try:
-            live = engine.batch_probs(x, xmean, lengths)
-            for _ in range(2):
-                engine.batch_probs(x, xmean, lengths)
-            t0 = time.perf_counter()
-            for _ in range(10):
-                engine.batch_probs(x, xmean, lengths)
-            live_ms = (time.perf_counter() - t0) / 10 * 1e3
-            if profile:
-                print("\n".join(proc.stdout.strip().splitlines()[:-1]))
-                profile_dispatch(engine)
-        finally:
-            engine.close()
-        launches += fbank_cuda.LAUNCHES
-        exp_err = float(np.abs(np.load(os.path.join(root, "out.npy")) - live).max())
-        tf32_err = float(np.abs(np.load(os.path.join(root, "out_tf32.npy")) - live).max())
-        numbers.update(export_ms=bare["ms"], live_ms=live_ms)
+        live, live_ms = {}, {}
+        for dtype, torch_dtype in DTYPES.items():
+            fbank_cuda.LAUNCHES = 0
+            engine = InferenceEngine([member(sd, torch_dtype) for sd in sds[:EXPORT_MEMBERS]],
+                                     PreprocessConfig(target_length=TARGET), names,
+                                     batch_size=BATCH, device=DEVICE)
+            try:
+                live[dtype] = engine.batch_probs(x, xmean, lengths)
+                for _ in range(2):
+                    engine.batch_probs(x, xmean, lengths)
+                t0 = time.perf_counter()
+                for _ in range(10):
+                    engine.batch_probs(x, xmean, lengths)
+                live_ms[dtype] = (time.perf_counter() - t0) / 10 * 1e3
+                if profile:
+                    profile_dispatch(engine)
+            finally:
+                engine.close()
+            launches += fbank_cuda.LAUNCHES
+        # the live bf16 program the artifact was traced from ('gemm'), eager
+        program = export_tool.build_program(
+            [member(sd, torch.bfloat16) for sd in sds[:EXPORT_MEMBERS]],
+            PreprocessConfig(target_length=TARGET), DEVICE)
+        with torch.no_grad():
+            gemm16 = program(*(torch.from_numpy(a).to(DEVICE)
+                               for a in (x, xmean, lengths))).cpu().numpy()
+        del program
+        out = {d: np.load(os.path.join(root, f"{d}.npy")) for d in DTYPES}
+        f32_err = float(np.abs(out["float32"] - live["float32"]).max())
+        tf32_err = float(np.abs(np.load(os.path.join(root, "float32_tf32.npy"))
+                                - live["float32"]).max())
+        bf16_err = float(np.abs(out["bfloat16"] - gemm16).max())
+        bf16_live_err = float(np.abs(out["bfloat16"] - live["bfloat16"]).max())
+        bf16_tf32_err = float(np.abs(np.load(os.path.join(root, "bfloat16_tf32.npy"))
+                                     - out["bfloat16"]).max())
+        sizes = {d: os.path.getsize(os.path.join(arts[d], export_tool.ARTIFACT)) / 1e6
+                 for d in DTYPES}
+        numbers.update(export_ms=bare["float32"]["ms"], live_ms=live_ms["float32"],
+                       export_bf16_ms=bare["bfloat16"]["ms"], live_bf16_ms=live_ms["bfloat16"])
         print(f"export ({EXPORT_MEMBERS} B{EFF_B} members, symbolic batch, traced on "
-              f"{DEVICE}): {export_s:.2f} s, "
-              f"{os.path.getsize(os.path.join(art, export_tool.ARTIFACT)) / 1e6:.1f} MB; "
-              f"loaded by torch alone in a subprocess ({bare_s:.2f} s; modules of this repo "
-              f"imported: {bare['repo_modules']}; cpu device literals in the graph: "
-              f"{bare['cpu_literals']}; tensors off the card: {bare['tensors_off_card']}); "
-              f"batch {BATCH}: artifact ('gemm' fbank) {bare['ms']:.2f} ms a call, live "
-              f"engine (fbank kernel) {live_ms:.2f} ms a call (host clock, waveforms in, "
-              f"probabilities out); max abs {exp_err:.3e} (bar {SERVE_ATOL}), with cuDNN's "
-              f"default TF32 convolutions {tf32_err:.3e} (not held to the bar) ({smi})")
+              f"{DEVICE}): bfloat16 {export_s['bfloat16']:.2f} s, {sizes['bfloat16']:.1f} MB "
+              f"(held {bare['bfloat16']['dtypes']}); float32 {export_s['float32']:.2f} s, "
+              f"{sizes['float32']:.1f} MB; loaded by torch alone in a subprocess "
+              f"({bare_s:.2f} s; modules of this repo imported: {bare['repo_modules']}; cpu "
+              f"device literals in the graphs: "
+              f"{[bare[d]['cpu_literals'] for d in DTYPES]}; tensors off the card: "
+              f"{[bare[d]['tensors_off_card'] for d in DTYPES]}) ({smi})")
+        print(f"  batch {BATCH}, a call (host clock, waveforms in, probabilities out): "
+              f"bf16 artifact ('gemm' fbank) {bare['bfloat16']['ms']:.2f} ms, live bf16 "
+              f"engine (fbank kernel) {live_ms['bfloat16']:.2f} ms; float32 artifact "
+              f"{bare['float32']['ms']:.2f} ms, live float32 engine "
+              f"{live_ms['float32']:.2f} ms")
+        print(f"  bf16 artifact vs the live bf16 program ('gemm') max abs {bf16_err:.3e} "
+              f"(bar {EXPORT_ATOL}), vs the live bf16 engine (fbank kernel) "
+              f"{bf16_live_err:.3e} (not held), with cuDNN's default TF32 flags "
+              f"{bf16_tf32_err:.3e} from itself; float32 artifact vs the live float32 "
+              f"engine {f32_err:.3e} (bar {SERVE_ATOL}), with cuDNN's default TF32 "
+              f"convolutions {tf32_err:.3e} (not held)")
+        for d in DTYPES:
+            check(bare[d]["cpu_literals"] == 0 and not bare[d]["tensors_off_card"],
+                  f"the moved {d} program keeps the CPU: {bare[d]['cpu_literals']} "
+                  f"literals, {bare[d]['tensors_off_card']}")
         check(not bare["repo_modules"],
-              f"the artifact's loader imported {bare['repo_modules']}")
-        check(bare["cpu_literals"] == 0 and not bare["tensors_off_card"],
-              f"the moved program keeps the CPU: {bare['cpu_literals']} literals, "
-              f"{bare['tensors_off_card']}")
-        check(exp_err <= SERVE_ATOL, f"artifact vs live engine: {exp_err}")
+              f"the artifacts' loader imported {bare['repo_modules']}")
+        check("torch.bfloat16" in bare["bfloat16"]["dtypes"],
+              f"the bf16 artifact holds {bare['bfloat16']['dtypes']}")
+        check(bf16_err <= EXPORT_ATOL, f"bf16 artifact vs live bf16 program: {bf16_err}")
+        check(f32_err <= SERVE_ATOL, f"artifact vs live engine: {f32_err}")
+
+        # psla-torch-export-chipcheck at its defaults, as a deployer runs it
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "psla_tpu_torch.tools.export_chipcheck"],
+                              cwd=os.path.dirname(os.path.abspath(__file__)),
+                              capture_output=True, text=True, timeout=600)
+        chipcheck_s = time.perf_counter() - t0
+        check(proc.returncode == 0, f"export_chipcheck: exit {proc.returncode} "
+                                    f"{proc.stdout[-2000:]} {proc.stderr[-4000:]}")
+        verdict = json.loads(proc.stdout.strip().splitlines()[-1])
+        print(f"psla-torch-export-chipcheck at its defaults ({chipcheck_s:.1f} s): "
+              f"{json.dumps(verdict)}")
+        check(verdict["ok"] is True and verdict["backend"] == "cuda",
+              f"export_chipcheck: {verdict}")
 
         # impretrain: the ImageNet backbone through the environment variable
         imagenet = imagenet_layout(sds[2])

@@ -9,11 +9,13 @@ the JAX ``ConvBN`` module) is a function over the pair.
 
 Parameters and BatchNorm statistics stay float32. A forward in bfloat16
 casts each weight to the activation dtype at its use, as flax does with
-``dtype=bfloat16``.
+``dtype=bfloat16``. ``for_inference`` makes the serving copy that holds
+them cast once (and each eval BatchNorm's scale and shift folded once).
 """
 
 from __future__ import annotations
 
+import copy
 import math
 
 import torch
@@ -21,6 +23,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from psla_tpu_torch.models.pooling import HeadPool
 from psla_tpu_torch.ops.qsave import DwConvQ8Save, qdq
 from psla_tpu_torch.parallel.distributed import gather_rows
 
@@ -196,13 +199,28 @@ class BatchNorm(nn.Module):
                     mean.mul_(1.0 - m).add_(batch_mean, alpha=m)
                     var.mul_(1.0 - m).add_(batch_var * (n / (n - 1)), alpha=m)
             return y
-        mul = self.weight * torch.rsqrt(self.running_var + self.eps)
-        if x.dtype == mul.dtype:
-            shift = self.bias - self.running_mean * mul
-            return torch.addcmul(shift[:, None, None], x, mul[:, None, None])
-        y = (x.to(mul.dtype) - self.running_mean[:, None, None]) * mul[:, None, None]
-        y = y + self.bias[:, None, None]
-        return y if self.float_out else y.to(x.dtype)
+        mul = self.eval_scale()
+        return _eval_normalize(x, mul[:, None, None], self.running_mean[:, None, None],
+                               self.bias[:, None, None], self.float_out)
+
+    def eval_scale(self) -> torch.Tensor:
+        """[C] float32 scale of eval mode, weight / sqrt(running_var + eps)."""
+        return self.weight * torch.rsqrt(self.running_var + self.eps)
+
+
+def _eval_normalize(x: torch.Tensor, mul: torch.Tensor, mean: torch.Tensor,
+                    bias: torch.Tensor, float_out: bool,
+                    shift: torch.Tensor | None = None) -> torch.Tensor:
+    """Eval-mode BatchNorm of NCHW ``x`` from [C, 1, 1] float32 ``mul``,
+    running mean and bias (``shift``, bias - mean * mul, when it is held):
+    one ``addcmul`` for an input in ``mul``'s dtype, else flax's order in
+    float32, rounded once to the input's dtype unless ``float_out``."""
+    if x.dtype == mul.dtype:
+        if shift is None:
+            shift = bias - mean * mul
+        return torch.addcmul(shift, x, mul)
+    y = (x.to(mul.dtype) - mean) * mul + bias
+    return y if float_out else y.to(x.dtype)
 
 
 class _GradInOwnStrides(torch.autograd.Function):
@@ -300,6 +318,87 @@ def set_batchnorm_group(model: nn.Module, group):
     for m in model.modules():
         if isinstance(m, BatchNorm):
             m.group = group
+
+
+class FoldedBatchNorm(nn.Module):
+    """An eval-mode ``BatchNorm`` whose scale ``mul`` and ``shift`` were
+    computed once, by the expressions of ``BatchNorm.forward``, and are
+    held as [C, 1, 1] float32 buffers beside the running mean and bias: the
+    same bits as the layer in eval mode, with no per-call work on its
+    parameters. Made by ``for_inference``; it has no train mode."""
+
+    def __init__(self, bn: BatchNorm):
+        super().__init__()
+        self.float_out = bn.float_out
+        with torch.no_grad():
+            mul = bn.eval_scale()
+            held = {"mul": mul, "shift": bn.bias - bn.running_mean * mul,
+                    "mean": bn.running_mean, "bias": bn.bias}
+            for name, t in held.items():
+                self.register_buffer(name, t.detach()[:, None, None].clone())
+        self.train(False)
+
+    def train(self, mode: bool = True):
+        if mode:
+            raise RuntimeError("a serving copy (layers.for_inference) has no train mode: "
+                               "train the source model and make a new copy")
+        return super().train(False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _eval_normalize(x, self.mul, self.mean, self.bias, self.float_out, self.shift)
+
+
+# the example batch [B, T, F] whose forward finds each weight's compute dtype
+EXAMPLE_SHAPE = (1, 64, 64)
+
+
+def for_inference(model: nn.Module, device: str | torch.device | None = None) -> nn.Module:
+    """An eval-only copy of ``model`` (on ``device``, default the model's
+    own) that computes the same bits as ``model.eval()`` in its compute
+    dtype with no per-call work on its weights: each ``SameConv2d`` and
+    ``PadConv2d`` holds its weight and bias in the dtype its forward casts
+    them to, the pooling heads hold their stacked product in the dtype of
+    their input (``HeadPool.freeze_projection``), and each ``BatchNorm`` is
+    a ``FoldedBatchNorm``. Those dtypes come from one forward of an example
+    batch with hooks, not from ``model.dtype``: ResNet50 and MobileNetV2
+    feed float32 BatchNorm outputs to convolutions that compute in bf16,
+    and MobileNetV2's classifier stays float32 in any dtype (it casts
+    nothing, and is left as it is).
+
+    The copy is frozen: ``train(True)`` raises, and new weights arrive by
+    making a new copy from the trained model. Its state_dict is not the
+    reference's layout."""
+    serving = copy.deepcopy(model)
+    if device is not None:
+        serving.to(device)
+    serving.eval().requires_grad_(False)
+    dtypes = {}
+
+    def record(mod, args):
+        dtypes.setdefault(mod, mod.compute_dtype if isinstance(mod, PadConv2d)
+                          else args[0].dtype)
+
+    hooks = [m.register_forward_pre_hook(record) for m in serving.modules()
+             if isinstance(m, (SameConv2d, PadConv2d, HeadPool))]
+    try:
+        with torch.no_grad():
+            serving(torch.zeros(EXAMPLE_SHAPE, device=next(serving.parameters()).device))
+    finally:
+        for h in hooks:
+            h.remove()
+    with torch.no_grad():
+        for mod, dtype in dtypes.items():
+            if isinstance(mod, HeadPool):
+                mod.freeze_projection(dtype)
+                continue
+            mod.weight = nn.Parameter(mod.weight.to(dtype), requires_grad=False)
+            if mod.bias is not None:
+                mod.bias = nn.Parameter(mod.bias.to(dtype), requires_grad=False)
+    for parent in list(serving.modules()):
+        for name, child in list(parent.named_children()):
+            if isinstance(child, BatchNorm):
+                setattr(parent, name, FoldedBatchNorm(child))
+    return serving
 
 
 def drop_connect(x: torch.Tensor, keep: torch.Tensor, rate: float) -> torch.Tensor:

@@ -9,9 +9,9 @@ init).
 
 The heads keep the reference's per-head ``att.{h}`` / ``cla.{h}`` 1x1 convs,
 so the state_dict has its keys; the forward stacks them into one
-``[H*2*n_out, C]`` product. Inputs are the time-major features ``[B, T, C]``.
-The sigmoid, the clamp and every sum run in float32 (float64 in a model
-cast to float64).
+``[H*2*n_out, C]`` product (``HeadPool``), which a serving copy holds.
+Inputs are the time-major features ``[B, T, C]``. The sigmoid, the clamp
+and every sum run in float32 (float64 in a model cast to float64).
 
 ``return_stats=True`` returns the streaming partial sums
 ``{"s1": [B, H, n_out], "s0": [B, H, n_out], "head_weight": [H]}``: every
@@ -42,15 +42,41 @@ def _psla_uniform_(conv: nn.Conv2d, generator: torch.Generator | None):
     nn.init.zeros_(conv.bias)
 
 
-def _project(x: torch.Tensor, convs: list[nn.Conv2d]) -> torch.Tensor:
-    """[B, T, C] through the stacked 1x1 convs -> sigmoid [B, T, len*n_out],
-    float32 or wider."""
-    w = torch.cat([c.weight[:, :, 0, 0] for c in convs]).to(x.dtype)
-    b = torch.cat([c.bias for c in convs]).to(x.dtype)
-    return torch.sigmoid(F.linear(x, w, b).to(torch.promote_types(x.dtype, torch.float32)))
+class HeadPool(nn.Module):
+    """What the three poolings share: their 1x1 convs (``heads``, in the
+    order of the stacked product) projected as one ``[len*n_out, C]``
+    product. The stack is made at each call, unless
+    ``freeze_projection`` holds it (``layers.for_inference``)."""
+
+    def heads(self) -> list[nn.Conv2d]:
+        raise NotImplementedError
+
+    def _stacked(self) -> tuple[torch.Tensor, torch.Tensor]:
+        if "proj_weight" in self._buffers:
+            return self.proj_weight, self.proj_bias
+        convs = self.heads()
+        return (torch.cat([c.weight[:, :, 0, 0] for c in convs]),
+                torch.cat([c.bias for c in convs]))
+
+    def freeze_projection(self, dtype: torch.dtype):
+        """Hold the stacked weight and bias in ``dtype`` and drop the per-head
+        convs, whose state_dict keys go with them."""
+        w, b = (t.detach().to(dtype) for t in self._stacked())
+        for name in ("att", "cla"):
+            if hasattr(self, name):
+                delattr(self, name)
+        self.register_buffer("proj_weight", w)
+        self.register_buffer("proj_bias", b)
+
+    def project(self, x: torch.Tensor) -> torch.Tensor:
+        """[B, T, C] through the stacked 1x1 convs -> sigmoid [B, T, len*n_out],
+        float32 or wider."""
+        w, b = self._stacked()
+        y = F.linear(x, w.to(x.dtype), b.to(x.dtype))
+        return torch.sigmoid(y.to(torch.promote_types(x.dtype, torch.float32)))
 
 
-class MultiHeadAttentionPool(nn.Module):
+class MultiHeadAttentionPool(HeadPool):
     """[B, T, C] -> [B, n_out] probabilities; H attention heads."""
 
     def __init__(self, n_in: int, n_out: int, head_num: int = 4):
@@ -66,10 +92,12 @@ class MultiHeadAttentionPool(nn.Module):
             _psla_uniform_(conv, generator)
         nn.init.constant_(self.head_weight, 1.0 / self.head_num)
 
+    def heads(self) -> list[nn.Conv2d]:
+        return [c for pair in zip(self.att, self.cla) for c in pair]
+
     def forward(self, x: torch.Tensor, return_stats: bool = False):
         b, t, _ = x.shape
-        convs = [c for pair in zip(self.att, self.cla) for c in pair]
-        y = _project(x, convs).view(b, t, self.head_num, 2, self.n_out)
+        y = self.project(x).view(b, t, self.head_num, 2, self.n_out)
         att = y[..., 0, :].clamp(EPSILON, 1.0 - EPSILON)  # [B, T, H, n_out]
         cla = y[..., 1, :]
         if return_stats:
@@ -83,7 +111,7 @@ class MultiHeadAttentionPool(nn.Module):
         return torch.einsum("bho,h->bo", per_head, self.head_weight)
 
 
-class AttentionPool(nn.Module):
+class AttentionPool(HeadPool):
     """Single-head attention pooling (HigherModels.py:23-82)."""
 
     def __init__(self, n_in: int, n_out: int):
@@ -97,9 +125,12 @@ class AttentionPool(nn.Module):
         _psla_uniform_(self.att, generator)
         _psla_uniform_(self.cla, generator)
 
+    def heads(self) -> list[nn.Conv2d]:
+        return [self.att, self.cla]
+
     def forward(self, x: torch.Tensor, return_stats: bool = False):
         b, t, _ = x.shape
-        y = _project(x, [self.att, self.cla]).view(b, t, 2, self.n_out)
+        y = self.project(x).view(b, t, 2, self.n_out)
         att = y[..., 0, :].clamp(EPSILON, 1.0 - EPSILON)
         cla = y[..., 1, :]
         if return_stats:
@@ -112,7 +143,7 @@ class AttentionPool(nn.Module):
         return (norm_att * cla).sum(dim=1)
 
 
-class MeanPool(nn.Module):
+class MeanPool(HeadPool):
     """Classifier + sigmoid + mean over time (HigherModels.py:84-115)."""
 
     def __init__(self, n_in: int, n_out: int):
@@ -124,8 +155,11 @@ class MeanPool(nn.Module):
     def reset_parameters(self, generator: torch.Generator | None = None):
         _psla_uniform_(self.cla, generator)
 
+    def heads(self) -> list[nn.Conv2d]:
+        return [self.cla]
+
     def forward(self, x: torch.Tensor, return_stats: bool = False):
-        probs = _project(x, [self.cla])  # [B, T, n_out]
+        probs = self.project(x)  # [B, T, n_out]
         if return_stats:
             b, t, _ = x.shape
             return {

@@ -21,20 +21,28 @@ the CUDA kernel, as the JAX export pins 'gemm' in place of its Pallas
 kernel: the program holds aten operators only, so ``torch.export.load``
 needs no custom op. The program is traced on ``--device``; ``load_exported``
 moves it to the device it is asked for
-(``torch.export.passes.move_to_device_pass``). The program computes in
-float32, and its convolutions follow the process's TF32 flags: a host that
-loads it with ``torch`` alone on a card sets
-``torch.backends.cudnn.allow_tf32 = False`` (PyTorch's default is True) to
-get the float32 results; ``ExportedModel`` on a card does.
+(``torch.export.passes.move_to_device_pass``).
 
-The JAX tool's ``--platforms`` has no meaning here (one program runs on the
-CPU and the card), and its ``--dtype bfloat16`` waits for bfloat16 serving
-(ROADMAP.md, Queue 3, item 1): the artifact computes in float32.
+``--dtype`` (``bfloat16`` by default, as the JAX tool's) is the compute
+dtype of the members' forwards. The program traces the serving copies
+that ``InferenceEngine`` runs (``models.layers.for_inference``): each
+weight is embedded in the dtype its layer computes in, cast once, and each
+BatchNorm's scale and shift folded once, so a call does no work on the
+weights. The fbank stays float32 and the probabilities come out float32 in
+either dtype. A float32 artifact's convolutions follow the process's TF32
+flags: a host that loads it with ``torch`` alone on a card sets
+``torch.backends.cudnn.allow_tf32 = False`` (PyTorch's default is True) to
+get the float32 results, as ``ExportedModel`` on a card does. A bfloat16
+artifact needs no TF32 setting: its convolutions run in bf16, and its
+float32 products (the fbank, MobileNetV2's classifier) follow
+``torch.backends.cuda.matmul.allow_tf32``, which PyTorch leaves False.
+
+The JAX tool's ``--platforms`` has no meaning here: one program runs on
+the CPU and the card.
 """
 
 from __future__ import annotations
 
-import copy
 import dataclasses
 import json
 import os
@@ -43,6 +51,7 @@ import numpy as np
 import torch
 
 from psla_tpu_torch.inference import ensemble_probs
+from psla_tpu_torch.models.layers import for_inference
 from psla_tpu_torch.train.state import place_model
 
 ARTIFACT = "model.pt2"
@@ -56,7 +65,7 @@ FORMAT_VERSION = 1
 class InferenceProgram(torch.nn.Module):
     """(wav [B, chunk], wav_mean [B], lengths [B] int32) -> the members'
     mean probabilities [B, n_class] (float32): ``batch_probs`` with the
-    'gemm' fbank."""
+    'gemm' fbank. ``build_program`` makes it from trained models."""
 
     def __init__(self, members: list[torch.nn.Module], config):
         super().__init__()
@@ -66,6 +75,16 @@ class InferenceProgram(torch.nn.Module):
     def forward(self, wav: torch.Tensor, wav_mean: torch.Tensor,
                 lengths: torch.Tensor) -> torch.Tensor:
         return ensemble_probs(self.members, wav, wav_mean, lengths, self.config)
+
+
+def build_program(members, config, device: str | torch.device) -> InferenceProgram:
+    """The program of ``members`` (a model or a list of them) on ``device``:
+    their serving copies (``for_inference``), with TF32 switched off for a
+    float32 program on a card (``train.state.place_model``)."""
+    if not isinstance(members, (list, tuple)):
+        members = [members]
+    return InferenceProgram(
+        [place_model(for_inference(m, device), device) for m in members], config).eval()
 
 
 def export_model(members, config, names: dict, *, batch: int | None = None,
@@ -84,8 +103,7 @@ def export_model(members, config, names: dict, *, batch: int | None = None,
         raise ValueError(f"batch must be >= 1 (got {batch}); "
                          "omit it for a symbolic batch dimension")
     device = torch.device(device)
-    program = InferenceProgram(
-        [place_model(copy.deepcopy(m), device).eval() for m in members], config).eval()
+    program = build_program(members, config, device)
     chunk = config.fbank.buffer_length(config.target_length)
     b = int(batch) if batch is not None else 2
     example = (torch.zeros((b, chunk), device=device), torch.zeros((b,), device=device),
@@ -107,6 +125,7 @@ def export_model(members, config, names: dict, *, batch: int | None = None,
         "n_class": len(names),
         "names": {str(int(k)): v for k, v in names.items()},
         "n_members": len(members),
+        "model": {"dtype": str(members[0].dtype).removeprefix("torch.")},
         "sample_rate": float(config.fbank.sample_frequency),
         "chunk_samples": int(chunk),
         "target_length": int(config.target_length),
@@ -129,14 +148,17 @@ def save_exported(outdir: str, exported, meta: dict) -> None:
 
 
 class ExportedModel:
-    """A loaded artifact on one device: callable without the model code."""
+    """A loaded artifact on one device: callable without the model code.
+    On a card it switches TF32 off for a float32 artifact; a bfloat16
+    artifact needs no TF32 setting (``meta["model"]["dtype"]``)."""
 
     def __init__(self, module, meta: dict, device: str | torch.device):
         self._module = module
         self.device = torch.device(device)
-        if self.device.type == "cuda":
-            # the program computes in float32; cuDNN's convolutions default
-            # to TF32, so switch it off (process-wide, as InferenceEngine does)
+        self.dtype = meta.get("model", {}).get("dtype", "float32")
+        if self.device.type == "cuda" and self.dtype == "float32":
+            # cuDNN's float32 convolutions default to TF32, so switch it off
+            # (process-wide, as InferenceEngine does); bf16 needs nothing
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
         self.meta = meta
@@ -255,6 +277,10 @@ def build_parser():
                         "at run time; must be >= 1)")
     p.add_argument("--device", default="cuda",
                    help="torch device to trace on (cuda, cuda:1, cpu)")
+    p.add_argument("--dtype", default="bfloat16", choices=["float32", "bfloat16"],
+                   help="compute dtype of the members' forwards, their weights "
+                        "embedded in it (the fbank and the probabilities stay "
+                        "float32)")
     return p
 
 
@@ -269,10 +295,11 @@ def main(argv=None) -> int:
     from psla_tpu_torch.models.convert import load_variables
 
     names = make_name_dict(args.label_csv or assets.label_csv_for(args.dataset))
+    dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     members = []
     for ckpt in args.ckpt:
         model = create_model(args.model, label_dim=len(names), eff_b=args.eff_b,
-                             head_num=args.att_head)
+                             head_num=args.att_head, dtype=dtype)
         model.load_state_dict(load_variables(ckpt))
         members.append(model)
     config = PreprocessConfig(
@@ -284,12 +311,11 @@ def main(argv=None) -> int:
     )
     exported, meta = export_model(members, config, names, batch=args.batch,
                                   device=args.device)
-    meta["model"] = {"name": args.model, "eff_b": args.eff_b,
-                     "att_head": args.att_head, "dtype": "float32"}
+    meta["model"].update(name=args.model, eff_b=args.eff_b, att_head=args.att_head)
     save_exported(args.out, exported, meta)
     size = os.path.getsize(os.path.join(args.out, ARTIFACT))
-    print(f"exported {len(members)} member(s), {len(names)} classes, traced on "
-          f"{args.device}, batch={'symbolic' if args.batch is None else args.batch} -> "
+    print(f"exported {len(members)} member(s), {len(names)} classes, {args.dtype}, "
+          f"traced on {args.device}, batch={'symbolic' if args.batch is None else args.batch} -> "
           f"{os.path.join(args.out, ARTIFACT)} ({size / 1e6:.1f} MB)")
     return 0
 

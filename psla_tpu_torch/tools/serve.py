@@ -34,7 +34,6 @@ stream, which orders their kernels; inference needs no lock.
 from __future__ import annotations
 
 import argparse
-import copy
 import json
 import queue
 import threading
@@ -46,6 +45,7 @@ import torch
 
 from psla_tpu_torch.data.wav import decode_wav, resample
 from psla_tpu_torch.inference import ensemble_probs, predict_long
+from psla_tpu_torch.models.layers import for_inference
 
 __all__ = ["InferenceEngine", "make_server", "build_parser", "engine_from_args",
            "main", "MAX_BODY_BYTES", "ServerShuttingDown"]
@@ -95,8 +95,11 @@ class InferenceEngine:
     micro-batching queue that HTTP workers share.
 
     ``model`` is an ``nn.Module`` with its weights, or a list of them (an
-    ensemble). The engine keeps its own copies in eval mode on ``device``,
-    or on each of ``replica_devices(num_devices, device, batch_size)``.
+    ensemble). The engine keeps its own serving copies
+    (``models.layers.for_inference``: the weights held in the dtype each
+    layer computes in, BatchNorm folded, the same bits as the model in eval
+    mode) on ``device``, or on each of
+    ``replica_devices(num_devices, device, batch_size)``.
     With several replicas a micro-batch is split into contiguous shards, one
     a replica. In float32 on the card it switches TF32 off for cuDNN and
     cuBLAS (process-wide, as ``train.state.create_train_state`` does), so
@@ -109,8 +112,7 @@ class InferenceEngine:
         self.devices = replica_devices(num_devices, device, batch_size)
         self.device = self.devices[0]
         models = model if isinstance(model, (list, tuple)) else [model]
-        self.replicas = [
-            tuple(copy.deepcopy(m).to(d).eval() for m in models) for d in self.devices]
+        self.replicas = [tuple(for_inference(m, d) for m in models) for d in self.devices]
         self.members = self.replicas[0]
         if self.device.type == "cuda" and self.members[0].dtype == torch.float32:
             torch.backends.cudnn.allow_tf32 = False
@@ -399,8 +401,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "micro-batch into N shards, one a card; default: one device")
     p.add_argument("--dtype", default="bfloat16",
                    choices=["float32", "bfloat16"],
-                   help="compute dtype of the forward (weights stay float32; "
-                        "use float32 for parity with offline eval)")
+                   help="compute dtype of the forward (the served copies hold each "
+                        "weight in it, cast once; use float32 for parity with "
+                        "offline eval)")
     return p
 
 

@@ -110,7 +110,7 @@ def test_serving_tools_take_the_backbones(name, corpus, tmp_path):
     width = ["--model", name, "--label-csv", label_csv, "--target_length", str(T),
              "--device", "cpu"]
     out = str(tmp_path / "export")
-    assert export_tool.main(["--ckpt", path, "--out", out] + width) == 0
+    assert export_tool.main(["--ckpt", path, "--out", out, "--dtype", "float32"] + width) == 0
     loaded = export_tool.load_exported(out, device="cpu")
     chunk = loaded.chunk_samples
     rng = np.random.default_rng(0)

@@ -169,6 +169,7 @@ def world2(tmp_path_factory):
         worker.run_rank, args=(WORLD, f"file://{root / 'store'}", spec_path, str(root)),
         nprocs=WORLD, join=False, start_method="spawn")
     mesh = make_mesh(device="cpu")
+    worker.warm_cpu_log()
     one = {
         "batchnorm": worker.batchnorm(spec, mesh),
         "batchnorm_bf16": worker.batchnorm(spec, mesh, torch.bfloat16),

@@ -212,6 +212,7 @@ def worlds(tmp_path_factory):
         open(os.path.join(spec["cli_copies"]["one_epoch1"], "DONE"), "w").close()
     cli.run(worker.cli_argv(spec, str(root / "one_epochs2"), 2))
     torch.set_num_threads(2)
+    worker.warm_cpu_log()
     one = {e: worker.ensemble_steps(spec, e, str(root / f"steps_e{e}_w1")) for e in (3, 2, 4)}
     one["tool"] = ensemble_tool.run(tool_argv(spec["tool_argv"][:2], *spec["corpus"][::2],
                                               str(root / "tool_one")))

@@ -30,6 +30,19 @@ from psla_tpu_torch.train.state import create_train_state, replicate_state
 from psla_tpu_torch.train.step import build_train_step, draw_train, step_generator
 
 
+def warm_cpu_log():
+    """One float32 ``torch.log`` on every intra-op thread of this process,
+    before any step whose bits are compared across processes. On a loaded
+    machine the first float32 log a CPU thread computes can be off by up to
+    ~40 ulp on that thread's whole chunk (4.0e-5 in the log-mel, caught in
+    a rank's first ``preprocess_train``; every later log of the same input
+    is correctly rounded but for 1 of 16384 values), which the float64
+    step's 1e-10 bar sees; one log on each thread first keeps every
+    compared log-mel correctly rounded."""
+    x = torch.rand(4096 * torch.get_num_threads(), generator=torch.Generator().manual_seed(0))
+    torch.log(x + 1e-3)
+
+
 def batchnorm(spec: dict, mesh: Mesh, dtype: torch.dtype = torch.float32) -> dict:
     """A train-mode ``BatchNorm`` on this rank's rows of ``spec["bn_x"]``
     (NCHW) in ``dtype``, backward from sum(y * bn_g): its output, input
@@ -124,6 +137,7 @@ def audited_run(argv: list[str], exp_dir: str) -> dict:
 
 def run_rank(rank: int, world: int, init_method: str, spec_path: str, out_dir: str):
     torch.set_num_threads(2)
+    warm_cpu_log()
     assert distributed.maybe_initialize(rank=rank, world_size=world, init_method=init_method,
                                         device="cpu")
     assert distributed.maybe_initialize()  # a second call

@@ -42,7 +42,7 @@ from psla_tpu_torch.parallel.mesh import make_mesh, shard_batch
 from psla_tpu_torch.tools import ensemble as ensemble_tool
 from psla_tpu_torch.train.ensemble_loop import EnsembleTrainer
 from psla_tpu_torch.train.state import create_train_state
-from tests.torch_distributed_worker import audited_run
+from tests.torch_distributed_worker import audited_run, warm_cpu_log
 
 # the seed counts each world trains
 LAYOUTS = {2: (3, 2, 4), 4: (2,)}
@@ -179,6 +179,7 @@ def held_steps(spec: dict) -> dict:
 
 def run_rank(rank: int, world: int, init_method: str, spec_path: str, out_dir: str):
     torch.set_num_threads(1)
+    warm_cpu_log()
     assert distributed.maybe_initialize(rank=rank, world_size=world, init_method=init_method,
                                         device="cpu")
     try:
