@@ -9,9 +9,6 @@ reference's norm of that leaf or of the median leaf, whichever is larger
 (some gradients are all but zero); the number is the worst leaf's. A leaf
 whose reference gradient is under a thousandth of the median leaf's moves
 under Adam by rounding alone and is left out of the change.
-
-Serving: every answer's probabilities against the reference's; the
-numbers are the widest gap and the mean gap.
 """
 
 from __future__ import annotations
@@ -63,13 +60,3 @@ def train_checks(program: dict, reference: dict, limits: dict) -> tuple[list, li
             ("grad_gap", grad_gap, limits["grad_gap"]),
             ("change_gap", change_gap, limits["change_gap"])], notes
 
-
-def prob_gap(got: torch.Tensor, want: torch.Tensor) -> float:
-    """The widest gap between two [N, classes] probability tables."""
-    return float((got.double() - want.double()).abs().max())
-
-
-def mean_prob_gap(got: torch.Tensor, want: torch.Tensor) -> float:
-    """The mean gap between two [N, classes] probability tables: steadier
-    than the widest from seed to seed, and a precision's mark."""
-    return float((got.double() - want.double()).abs().mean())

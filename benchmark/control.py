@@ -7,24 +7,19 @@ runs never run this.
 
     python3 benchmark/control.py --workload <cell> --seeds 1 2 3 [--device cuda]
 
-Training cells (the one-process reference on the global batch, at the
-cell's own size, from the weights, batches and draws its runs make):
+Training cells (the reference at the cell's own size, from the weights,
+batches and draws its runs make):
 
 * ``control``: every product and convolution at TF32 (``precision.tf32``);
 * ``half_batch``: the steps on the first half of the batch's rows, the
   mean taken over them;
-* ``exchange_left_out`` (cells on several cards): the steps on the first
-  rank's share of the rows alone, as a rank whose gradients and
-  statistics are never exchanged computes them;
 * ``altered``: each step's loss, the answer a step produces, altered by
   1% where it is computed;
 * ``unchanged`` (a step that hands its state back unchanged) needs no run:
   its first moment and its change are zero, so it reads 1 on the
   gradient and the change.
 
-Serving cells: ``control``, the reference's probabilities at fp8
-(``precision.fp8``) against float32's on every distinct request of a
-window of the manifest's ``run_seconds``. One JSON line a seed and reading on standard output.
+One JSON line a seed and reading on standard output.
 """
 
 from __future__ import annotations
@@ -68,8 +63,6 @@ def train_readings(cell, seed: int, dev) -> dict:
     reference = training.train_steps(config, weights, batches, draws, wl["start_step"])
     readings = {"control": steps_of(batches, draws, "tf32"),
                 "half_batch": steps_of(*sliced(batches, draws, batch // 2))}
-    if cell.chips > 1:
-        readings["exchange_left_out"] = steps_of(*sliced(batches, draws, batch // cell.chips))
     bce = training.bce
     training.bce = lambda p, t: bce(p, t) * 1.01
     try:
@@ -80,24 +73,6 @@ def train_readings(cell, seed: int, dev) -> dict:
            for name, r in readings.items()}
     out["unchanged"] = {"grad_gap": 1.0, "change_gap": 1.0}
     return out
-
-
-def serve_readings(cell, seed: int, dev, seconds: float) -> dict:
-    from benchmark import compare, traffic
-    from benchmark.drivers.serve import reference_probs
-    from benchmark.reference import kaldi_fbank
-    from benchmark.weights import make_weights
-
-    wl, config = cell.workload, cell.config
-    weights = make_weights(config, seed, dev, wl["members"])
-    buffer = kaldi_fbank.buffer_length(config["target_length"], config["sample_rate"])
-    _, lengths, clip_ids = traffic.requests(wl["traffic"], seconds, seed, config["sample_rate"])
-    wav = traffic.waveforms(wl["traffic"]["distinct_clips"], buffer, seed, dev).cpu().numpy()
-    clips = [wav[k, :n] for k, n in sorted(set(zip(clip_ids.tolist(), lengths.tolist())))]
-    want = reference_probs(config, weights, clips, buffer, dev)
-    got = reference_probs(config, weights, clips, buffer, dev, precision="fp8")
-    return {"control": {"prob_gap": compare.prob_gap(got, want),
-                        "mean_prob_gap": compare.mean_prob_gap(got, want)}}
 
 
 def main(argv=None) -> int:
@@ -115,10 +90,8 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     cell = harness.cell(args.workload)
     dev = torch.device(args.device)
-    seconds = harness.load_json(ROOT / "BENCHMARK.json")["run_seconds"]
     for seed in args.seeds:
-        readings = (serve_readings(cell, seed, dev, seconds)
-                    if cell.workload["driver"] == "serve" else train_readings(cell, seed, dev))
+        readings = train_readings(cell, seed, dev)
         for name, numbers in readings.items():
             print(json.dumps({"workload": args.workload, "seed": seed, "reading": name,
                               **numbers}), flush=True)

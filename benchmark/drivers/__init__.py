@@ -1,2 +1,2 @@
-"""One driver a way of running the program (``train``, ``serve``,
-``train_dp``), named by a workload file's ``driver``."""
+"""One driver a way of running the program (``train``), named by a
+workload file's ``driver``."""

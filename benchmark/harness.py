@@ -98,26 +98,13 @@ class Trace:
     """What a traced run read: the profiled window's length on the host's
     clock, the seconds some operation ran on the device in it, the device
     operations (name, seconds), the idle gaps (what the host was doing,
-    seconds), the cell driver's counters and, for several ranks, each rank's."""
+    seconds) and the cell driver's counters."""
 
     window_s: float = 0.0
     busy_s: float = 0.0
     ops: list = dataclasses.field(default_factory=list)
     gaps: list = dataclasses.field(default_factory=list)
     counters: dict = dataclasses.field(default_factory=dict)
-    ranks: list = dataclasses.field(default_factory=list)
-
-    def to_dict(self) -> dict:
-        return dataclasses.asdict(self)
-
-    @classmethod
-    def from_dict(cls, d: dict) -> "Trace":
-        d = dict(d)
-        d["ranks"] = [cls.from_dict(r) for r in d.get("ranks", [])]
-        return cls(**d)
-
-    def each_rank(self) -> list["Trace"]:
-        return self.ranks or [self]
 
 
 def _union(intervals) -> list[list[float]]:
@@ -209,9 +196,7 @@ def top(pairs, n: int = 10) -> list[list]:
 
 
 def breakdown(trace: Trace) -> dict:
-    ops = [op for t in trace.each_rank() for op in t.ops]
-    gaps = sorted((g for t in trace.each_rank() for g in t.gaps), key=lambda g: -g[1])
-    return {"device_ops": top(ops), "idle_gaps": [[g[0][:160], g[1]] for g in gaps[:10]]}
+    return {"device_ops": top(trace.ops), "idle_gaps": [[g[:160], s] for g, s in trace.gaps]}
 
 
 # ------------------------------------------------------------------ result
@@ -255,9 +240,8 @@ def result(c: Cell, out: Outcome, traced: bool) -> dict:
     line = {"correct": bool(correct), "attempted": out.attempted, "failed": out.failed,
             "metrics": metrics, "device": device}
     if traced:
-        ranks = out.trace.each_rank()
-        device["busy_s"] = sum(t.busy_s for t in ranks) / len(ranks)
-        device["window_s"] = sum(t.window_s for t in ranks) / len(ranks)
+        device["busy_s"] = out.trace.busy_s
+        device["window_s"] = out.trace.window_s
         line["breakdown"] = breakdown(out.trace)
     line["compared"] = {name: {"value": v, "limit": lim} for name, v, lim in out.checks}
     return line

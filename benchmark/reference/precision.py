@@ -9,9 +9,6 @@ The lower precisions are the controls that the comparison deciding
   nearest even), as the tensor cores read float32 operands with TF32 on;
   the gradient that flows back through an operand is rounded the same
   way, since it is the operand of the backward products.
-* ``fp8``: each operand scaled by its largest magnitude onto float8
-  e4m3's range (448), rounded to e4m3 and scaled back: a per-tensor fp8
-  product, the step below bfloat16.
 """
 
 from __future__ import annotations
@@ -20,8 +17,7 @@ import contextlib
 
 import torch
 
-PRECISIONS = ("float32", "tf32", "fp8")
-E4M3_MAX = 448.0
+PRECISIONS = ("float32", "tf32")
 
 
 def round_tf32(t: torch.Tensor) -> torch.Tensor:
@@ -32,13 +28,7 @@ def round_tf32(t: torch.Tensor) -> torch.Tensor:
     return bits.to(torch.int32).view(torch.float32).view(t.shape)
 
 
-def round_fp8(t: torch.Tensor) -> torch.Tensor:
-    """``t`` through a per-tensor scaled float8 e4m3 round trip."""
-    scale = t.detach().abs().amax().clamp_min(1e-30) / E4M3_MAX
-    return (t / scale).to(torch.float8_e4m3fn).to(t.dtype) * scale
-
-
-_ROUND = {"tf32": round_tf32, "fp8": round_fp8}
+_ROUND = {"tf32": round_tf32}
 
 
 class _Round(torch.autograd.Function):

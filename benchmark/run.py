@@ -15,6 +15,9 @@ with ``--trace 1`` its per-layer metrics), ``device``, ``breakdown`` when
 traced, and ``compared``, each number compared with its limit, which also
 close standard error. Without a card, or with fewer than the cell asks
 for, it exits with 2 and prints no result; it never falls back to the CPU.
+If JAX, its libraries or the JAX package (``psla_tpu``, by whole top-level
+name) are loaded once the result is built, it names them on standard
+error, exits with 3 and prints no result.
 """
 
 import time
@@ -59,11 +62,12 @@ def main(argv=None) -> int:
     driver = importlib.import_module(f"benchmark.drivers.{cell.workload['driver']}")
     out = driver.run(cell, seed=args.seed, seconds=args.seconds, traced=bool(args.trace),
                      t0=T0)
+    line = harness.result(cell, out, bool(args.trace))
+    # after every metric reader has been loaded, just before the result
     bad = harness.forbidden_modules()
     if bad:
         print(f"benchmark: forbidden modules loaded: {bad}", file=sys.stderr)
         return 3
-    line = harness.result(cell, out, bool(args.trace))
     for note in out.notes:
         print(note, file=sys.stderr)
     for name, value, limit in out.checks:

@@ -1,5 +1,5 @@
 """The comparison that decides ``correct`` at a size a test run holds, on
-the CPU: a sound run of each driver comes out correct; the control (the
+the CPU: a sound run of each cell comes out correct; the control (the
 reference put in the program's place at the precision below the cell's)
 fails a cell's limits; and a run with the timed path broken underneath
 comes out not correct, once for each fault the cell can have. The cells'
@@ -9,17 +9,13 @@ card."""
 
 import dataclasses
 import time
-import types
 
-import numpy as np
 import pytest
 import torch
 
-import psla_tpu_torch.models.layers as layers
-import psla_tpu_torch.tools.serve as serve_module
 import psla_tpu_torch.train.step as step_module
 from benchmark import control, harness, program
-from benchmark.drivers import serve, train, train_dp
+from benchmark.drivers import train
 
 TINY = dict(eff_b=0, n_class=10, target_length=64, freqm=8, timem=16)
 SEED = 2**31 + 101
@@ -32,19 +28,12 @@ def kernel_precision(monkeypatch):
                         lambda c: dataclasses.replace(plain(c), fbank_method="fft64"))
 
 
-# cells kept beside the manifest's, not declared in it (PERF.md, open questions)
-KEPT = [{"name": "audioset_full.serve", "config": "audioset_full", "traffic": "serve",
-         "chips": 1, "why": "open-loop requests to the bf16 engine"},
-        {"name": "audioset_full.train.dp4", "config": "audioset_full",
-         "traffic": "train_dp4", "chips": 4, "why": "global batch 100 on 4 ranks"}]
+CELLS = [w["name"] for w in harness.load_json(harness.ROOT / "BENCHMARK.json")["workloads"]]
 
 
-def tiny(name: str, **workload) -> harness.Cell:
-    manifest = harness.load_json(harness.ROOT / "BENCHMARK.json")
-    manifest["workloads"] += KEPT
-    c = harness.cell(name, manifest)
-    c.config.update(TINY, batch_size=8 if c.chips > 1 else 4)
-    c.workload.update(workload)
+def tiny(name: str) -> harness.Cell:
+    c = harness.cell(name)
+    c.config.update(TINY, batch_size=4)
     return c
 
 
@@ -64,8 +53,9 @@ def failing(readings: dict, limits: dict) -> list[str]:
 # ------------------------------------------------------------------ training
 
 
-def test_a_sound_training_run_is_correct():
-    c = tiny("audioset_full.train")
+@pytest.mark.parametrize("name", CELLS)
+def test_a_sound_training_run_is_correct(name):
+    c = tiny(name)
     out = run_train(c)
     assert correct(c, out), out.checks
 
@@ -105,111 +95,10 @@ def test_a_broken_training_step_is_not_correct(plant, monkeypatch):
     assert not correct(c, out), out.checks
 
 
-@pytest.mark.parametrize("name", ["audioset_full.train", "audioset_full.train.dp4"])
+@pytest.mark.parametrize("name", CELLS)
 def test_the_training_control_and_faults_fail_the_limits(name):
     c = tiny(name)
     readings = control.train_readings(c, SEED, torch.device("cpu"))
-    assert set(readings) == {"control", "half_batch", "altered", "unchanged"} | (
-        {"exchange_left_out"} if c.chips > 1 else set())
+    assert set(readings) == {"control", "half_batch", "altered", "unchanged"}
     for reading, numbers in readings.items():
         assert failing(numbers, c.workload["limits"]), (reading, numbers)
-
-
-# ------------------------------------------------------------------ data parallel
-
-
-def _kernel_precision_in_rank():
-    plain = program.preprocess_config
-    program.preprocess_config = lambda c: dataclasses.replace(plain(c), fbank_method="fft64")
-
-
-def sound_rank(argv):
-    _kernel_precision_in_rank()
-    return train_dp.rank_main(argv)
-
-
-def exchange_left_out(argv):
-    """A rank whose gradients and BatchNorm statistics are never exchanged."""
-    _kernel_precision_in_rank()
-    layers.dist = types.SimpleNamespace(get_world_size=lambda group=None: 1,
-                                        all_reduce=lambda *a, **k: None)
-    layers.gather_rows = lambda t, group=None: t[None]
-    step_module._average_gradients = lambda params, loss, mesh: loss
-    return train_dp.rank_main(argv)
-
-
-@pytest.mark.parametrize("entry", [sound_rank, exchange_left_out],
-                         ids=["sound", "exchange_left_out"])
-def test_data_parallel_runs(entry, monkeypatch):
-    monkeypatch.setenv("OMP_NUM_THREADS", "1")
-    c = tiny("audioset_full.train.dp4")
-    out = train_dp.run(c, seed=SEED, seconds=1.0, traced=False, t0=time.perf_counter(),
-                       device="cpu", entry=entry)
-    assert correct(c, out) == (entry is sound_rank), out.checks
-
-
-# ------------------------------------------------------------------ serving
-
-
-def run_serve(c: harness.Cell) -> harness.Outcome:
-    return serve.run(c, seed=SEED, seconds=1.5, traced=False, t0=time.perf_counter(),
-                     device="cpu")
-
-
-def serve_cell() -> harness.Cell:
-    c = tiny("audioset_full.serve")
-    c.workload["traffic"] = dict(c.workload["traffic"], rate_per_s=60)
-    return c
-
-
-def test_a_sound_serving_run_is_correct():
-    c = serve_cell()
-    out = run_serve(c)
-    assert correct(c, out) and out.attempted == 90, (out.checks, out.notes)
-
-
-def _answer_altered(monkeypatch):
-    probs = serve_module.ensemble_probs
-
-    def altered(*a, **k):
-        out = probs(*a, **k).clone()
-        out[0] = out[0].roll(1)  # one answer's classes shifted by one
-        return out
-    monkeypatch.setattr(serve_module, "ensemble_probs", altered)
-
-
-def _half_rows(monkeypatch):
-    probs = serve_module.ensemble_probs
-
-    def halved(members, wav, wav_mean, lengths, config):
-        rows = (len(wav) + 1) // 2
-        return probs(members, wav[:rows], wav_mean[:rows], lengths[:rows], config)
-    monkeypatch.setattr(serve_module, "ensemble_probs", halved)
-
-
-def _answer_lost(monkeypatch):
-    predict = serve_module.InferenceEngine.predict
-    calls = []
-
-    def lossy(self, wav, sample_rate):
-        calls.append(1)
-        if len(calls) % 10 == 0:
-            raise RuntimeError("request dropped")
-        return predict(self, wav, sample_rate)
-    monkeypatch.setattr(serve_module.InferenceEngine, "predict", lossy)
-
-
-@pytest.mark.parametrize("plant", [_answer_altered, _half_rows, _answer_lost],
-                         ids=["answer_altered", "half_rows", "answer_lost"])
-def test_a_broken_dispatch_is_not_correct(plant, monkeypatch):
-    plant(monkeypatch)
-    c = serve_cell()
-    out = run_serve(c)
-    assert not correct(c, out), (out.checks, out.notes)
-
-
-def test_the_serving_control_fails_the_limit():
-    c = serve_cell()
-    readings = control.serve_readings(c, SEED, torch.device("cpu"), 1.5)
-    assert failing(readings["control"], c.workload["limits"]), readings
-    assert np.isfinite(readings["control"]["prob_gap"])

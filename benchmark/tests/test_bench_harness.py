@@ -1,6 +1,7 @@
 """The harness: the manifest keeps the benchmark's contract, every cell's
 files are found by name, a new cell needs only new files and an entry, the
-result line has its keys, and ``run.py`` refuses to run without a card."""
+result line has its keys, and ``run.py`` refuses to run without a card and
+prints no result once JAX or the JAX package is loaded."""
 
 import json
 import re
@@ -8,6 +9,7 @@ import shutil
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import pytest
@@ -103,6 +105,8 @@ def test_the_result_line_has_its_keys(traced):
     out = train.run(c, seed=2**31 + 11, seconds=1.0, traced=traced, t0=time.perf_counter(),
                     device="cpu")
     line = json.loads(json.dumps(harness.result(c, out, traced)))
+    # the contract's keys; "compared", each number compared beside its
+    # limit, comes last as the contract asks
     want = ["correct", "attempted", "failed", "metrics", "device"]
     assert list(line) == want + (["breakdown"] if traced else []) + ["compared"]
     assert set(line["device"]) >= {"platform", "kind", "count", "memory_peak_bytes"}
@@ -113,6 +117,35 @@ def test_the_result_line_has_its_keys(traced):
         assert set(line["metrics"]) <= {m["name"] for m in c.per_layer}
     else:
         assert set(line["metrics"]) == {"train_clips_per_s", "setup_s"}
+
+
+def test_run_prints_no_result_once_jax_is_loaded(monkeypatch, capsys):
+    """A per-layer metric reader that loads the JAX package, as a later
+    metric file could: the check runs after the result is built."""
+    from benchmark import run
+
+    assert not harness.forbidden_modules()
+    c = harness.cell("audioset_full.train")
+    c.config.update(TINY)
+    c.workload["profile_steps"] = 1
+    out = train.run(c, seed=2**31 + 12, seconds=1.0, traced=True, t0=time.perf_counter(),
+                    device="cpu")
+
+    def reader(trace):
+        monkeypatch.setitem(sys.modules, "psla_tpu", types.ModuleType("psla_tpu"))
+        return 1.0
+
+    monkeypatch.setenv("PSLA_TPU_TORCH_BUILD_DIR", "unused")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(train, "run", lambda *a, **k: out)
+    monkeypatch.setattr(harness, "metric_reader", lambda name: reader)
+    capsys.readouterr()
+    rc = run.main(["--workload", "audioset_full.train", "--seed", "5", "--seconds", "1",
+                   "--trace", "1"])
+    printed = capsys.readouterr()
+    assert rc == 3 and printed.out == ""
+    assert "psla_tpu" in printed.err
 
 
 def _run(cwd: Path):

@@ -11,10 +11,6 @@ Training (``train_pool``): ``pool_batches`` batches of distinct clips that
 the window cycles through, each with its mixup partners (clips of the
 next batch), int16 PCM as the loader's wire carries it, true lengths,
 full-clip means and multi-hot labels.
-
-Serving (``requests``): open-loop arrivals at ``rate_per_s``, Poisson
-gaps, each request a clip of the ``lengths`` mix cut from one of
-``distinct_clips`` waveforms.
 """
 
 from __future__ import annotations
@@ -90,19 +86,3 @@ def train_pool(traffic: dict, config: dict, batch: int, seed: int, device) -> li
                      "mix_labels": labels[partner]})
     return pool
 
-
-def requests(traffic: dict, seconds: float, seed: int, sample_rate: float
-             ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """(due times in s from the window's start, lengths in samples, clip
-    index) of the requests due in a window of ``seconds``: rate x seconds
-    arrivals whose Poisson gaps are the exponential's evenly spaced
-    quantiles, shuffled."""
-    rate = float(traffic["rate_per_s"])
-    n = int(round(rate * seconds))
-    rng = _rng(seed, 2)
-    gaps = -np.log1p(-(np.arange(n) + 0.5) / n) / rate
-    due = np.concatenate([[0.0], np.cumsum(rng.permutation(gaps))[:-1]])
-    lengths = rng.permutation(length_mix(traffic["lengths"], n, sample_rate))
-    clips = rng.integers(traffic["distinct_clips"], size=n)
-    keep = due < seconds
-    return due[keep], lengths[keep], clips[keep]
