@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from psla_tpu_torch.frontend.pipeline import WavBatch
+from psla_tpu_torch.tracing import span
 
 # the fields a step reads; the rest of a host batch ('n_valid') stays on
 # the host
@@ -128,7 +129,8 @@ def prefetch_to_device(
             for hb in host_batches:
                 if stop.is_set():
                     return
-                staged = ring.put(hb) if ring is not None else (to_device(hb, device), None)
+                with span("prefetch.stage"):
+                    staged = ring.put(hb) if ring is not None else (to_device(hb, device), None)
                 if not enqueue((hb, *staged)):
                     return
             enqueue(None)
@@ -143,13 +145,16 @@ def prefetch_to_device(
     t.start()
     try:
         while True:
-            item = q.get()
-            if item is None:
-                return
-            if isinstance(item, BaseException):
-                raise item
-            hb, batch, event = item
-            yield hb, (ring.ready(batch, event) if ring is not None else batch)
+            with span("prefetch.wait"):  # from asking for a batch until it can be read
+                item = q.get()
+                if item is None:
+                    return
+                if isinstance(item, BaseException):
+                    raise item
+                hb, batch, event = item
+                if ring is not None:
+                    batch = ring.ready(batch, event)
+            yield hb, batch
     finally:
         stop.set()
         try:

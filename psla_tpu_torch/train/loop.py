@@ -285,7 +285,9 @@ class Trainer:
     def _profile_tick(self, gstep: int):
         """Start and stop a torch.profiler trace around the configured steps
         (config.profile_steps / profile_start_step), written as a Chrome
-        trace into {exp_dir}/profile: rank 0's."""
+        trace into {exp_dir}/profile: rank 0's, of every thread, so that it
+        holds the prefetch producer's ``psla.prefetch.stage`` spans beside
+        the step's (``psla_tpu_torch/tracing.py``)."""
         cfg = self.config
         if not cfg.profile_steps or not is_primary():
             return
@@ -293,7 +295,9 @@ class Trainer:
             activities = [torch.profiler.ProfilerActivity.CPU]
             if self.device.type == "cuda":
                 activities.append(torch.profiler.ProfilerActivity.CUDA)
-            self._profiler = torch.profiler.profile(activities=activities)
+            self._profiler = torch.profiler.profile(
+                activities=activities, experimental_config=torch.profiler._ExperimentalConfig(
+                    profile_all_threads=True))
             self._profiler.start()
         elif self._profiler is not None and gstep >= cfg.profile_start_step + cfg.profile_steps:
             self._profile_flush()

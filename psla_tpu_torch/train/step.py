@@ -36,6 +36,7 @@ from psla_tpu_torch.frontend.pipeline import (
 )
 from psla_tpu_torch.models.layers import BatchNorm
 from psla_tpu_torch.parallel.mesh import Mesh
+from psla_tpu_torch.tracing import span
 from psla_tpu_torch.train.optim import bce_loss, ce_loss, per_sample_loss, set_lr
 from psla_tpu_torch.train.state import TrainState
 
@@ -80,14 +81,15 @@ def draw_train(generator: torch.Generator, model: torch.nn.Module, batch: int,
     """One step's draws, on the generator's device: the preprocessing's and
     one keep mask per EfficientNet block that drops (Bernoulli(1 -
     drop_rate))."""
-    pre = draw_preprocess(generator, batch, config)
-    blocks = model.effnet.drop_blocks if hasattr(model, "effnet") else []
-    if not blocks:
-        return TrainDraws(pre, None)
-    keep_prob = torch.tensor([1.0 - model.effnet._blocks[i].drop_rate for i in blocks],
-                             device=generator.device)
-    u = torch.rand((len(blocks), batch), generator=generator, device=generator.device)
-    return TrainDraws(pre, u < keep_prob[:, None])
+    with span("train.draws"):
+        pre = draw_preprocess(generator, batch, config)
+        blocks = model.effnet.drop_blocks if hasattr(model, "effnet") else []
+        if not blocks:
+            return TrainDraws(pre, None)
+        keep_prob = torch.tensor([1.0 - model.effnet._blocks[i].drop_rate for i in blocks],
+                                 device=generator.device)
+        u = torch.rand((len(blocks), batch), generator=generator, device=generator.device)
+        return TrainDraws(pre, u < keep_prob[:, None])
 
 
 def shard_draws(draws: TrainDraws, mesh: Mesh, rows: int) -> TrainDraws:
@@ -142,7 +144,7 @@ def build_train_step(pre_config: PreprocessConfig, loss_type: str = "BCE",
     group = mesh.group if mesh is not None and mesh.world > 1 else None
     placed = []  # the last model seen to be on the mesh's group
 
-    def train_step(state: TrainState, batch: Mapping, draws: TrainDraws):
+    def one_step(state: TrainState, batch: Mapping, draws: TrainDraws):
         model, optimizer = state.model, state.optimizer
         model.train()
         if group is not None:
@@ -153,19 +155,28 @@ def build_train_step(pre_config: PreprocessConfig, loss_type: str = "BCE",
                                      "place the state with replicate_state(state, mesh)")
                 placed[:] = [model]
             draws = shard_draws(draws, mesh, len(batch["wav"]))
-        fbank, labels = preprocess_train(_wav_batch(batch, state.device), draws.pre,
-                                         pre_config)
-        probs = model(fbank) if draws.keep is None else model(fbank, keep=draws.keep)
-        loss = loss_fn(probs, labels)
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        with span("train.preprocess"):
+            fbank, labels = preprocess_train(_wav_batch(batch, state.device), draws.pre,
+                                             pre_config)
+        with span("train.forward"):
+            probs = model(fbank) if draws.keep is None else model(fbank, keep=draws.keep)
+            loss = loss_fn(probs, labels)
+        with span("train.backward"):
+            optimizer.zero_grad(set_to_none=True)
+            loss.backward()
         loss = loss.detach()
         if group is not None:
-            loss = _average_gradients(model.parameters(), loss, mesh)
-        set_lr(optimizer, state.schedule(state.step))
-        optimizer.step()
+            with span("train.exchange"):
+                loss = _average_gradients(model.parameters(), loss, mesh)
+        with span("train.optimizer"):
+            set_lr(optimizer, state.schedule(state.step))
+            optimizer.step()
         state.step += 1
         return state, {"loss": loss}
+
+    def train_step(state: TrainState, batch: Mapping, draws: TrainDraws):
+        with span("train.step"):
+            return one_step(state, batch, draws)
 
     return train_step
 

@@ -23,6 +23,7 @@ from psla_tpu_torch.models import create_model
 from psla_tpu_torch.models.convert import CHECKPOINT_FILE, load_variables
 from psla_tpu_torch.train import loop
 from tests.synth import build_corpus
+from tests.test_torch_tracing import assert_step_phases
 from tests.torch_port_fixtures import tmp_path  # noqa: F401
 
 torch.set_num_threads(2)
@@ -69,6 +70,8 @@ def test_run_writes_the_protocol_artifacts(corpus, tmp_path, capsys):
     for tag in ("epoch_1", "epoch_2", "best", "wa"):
         assert os.path.isfile(os.path.join(exp, "models", tag, CHECKPOINT_FILE)), tag
     assert os.listdir(os.path.join(exp, "profile")) == ["trace_steps_1.json"]
+    # the operator's trace holds the step's spans (psla_tpu_torch/tracing.py)
+    assert_step_phases(os.path.join(exp, "profile", "trace_steps_1.json"))
     out = capsys.readouterr().out
     assert "balanced sampler is being used" in out
     tb = os.path.join(exp, "tb")
