@@ -252,6 +252,20 @@ result line):
    phase 12's single-model step at the same clips a rank, and prints each
    one's device time by group (the NCCL collectives apart) over a
    profiled step.
+15. Train-mode BatchNorm with its SiLU (``ops/bn_train.py``), run after
+   phase 5: at every distinct (N, C, H, W, act) of B2's 69 BatchNorms in
+   both recipes (batch 100 at T=1056, batch 24 at T=3000) the kernels
+   against their plain version (``F.batch_norm`` then the activation): z,
+   the batch mean and variance, the running statistics after one and two
+   calls, dx, dweight and dbias, each within ``F32_REL_BAR`` of max |ref|;
+   then the forward and backward timed at each shape (queued behind a
+   sleep on the card, so that host launch time does not show) and summed
+   over a step's layers beside their bytes bound (8 B an element forward,
+   12 B backward), the plain version and the library calls, the kernels'
+   sum held to at least 40% of the bound; an eval forward launches
+   neither kernel. Every held train step (phases 6, 9, 10, 13) counts the
+   kernels' launches: one forward and one backward a BatchNorm in float32
+   (69 + 69 for B2), none in bf16; phase 12's synced ranks launch none.
 
 The line before the last is a JSON object with one record per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -311,9 +325,9 @@ from psla_tpu_torch.frontend.pipeline import PreprocessConfig
 from psla_tpu_torch.inference import _chunk_logmel, ensemble_probs, predict_long
 from psla_tpu_torch.models import create_model
 from psla_tpu_torch.models.convert import load_variables
-from psla_tpu_torch.models.layers import BatchNorm
+from psla_tpu_torch.models.layers import BN_EPS, BN_MOMENTUM, BatchNorm
 from psla_tpu_torch.models.pretrained import CKPT_ENV
-from psla_tpu_torch.ops import fused_mbconv, mbconv_vmem
+from psla_tpu_torch.ops import bn_train, fused_mbconv, mbconv_vmem
 from psla_tpu_torch.tools import compute_stats as stats_tool
 from psla_tpu_torch.tools import convert_ckpt as convert_tool
 from psla_tpu_torch.tools import ensemble as ensemble_tool
@@ -400,7 +414,8 @@ def header():
 
 
 LIBRARIES = {"fbank": fbank_cuda.LIBRARY, "mbconv_pass1": fused_mbconv.LIBRARY,
-             "mbconv_pass2": fused_mbconv.PASS2_LIBRARY, "mbconv_v2": mbconv_vmem.LIBRARY}
+             "mbconv_pass2": fused_mbconv.PASS2_LIBRARY, "mbconv_v2": mbconv_vmem.LIBRARY,
+             "bn_train": bn_train.LIBRARY}
 
 
 def kernel_report(log: str) -> list[tuple[str, int, int]]:
@@ -1244,6 +1259,189 @@ def mbconv_phase() -> list[dict]:
     return records
 
 
+# ---------------------------------------------------------------- phase 15
+
+# Train-mode BatchNorm with its SiLU (ops/bn_train.py) at the layer shapes
+# of B2's two recipes: (time axis, batch) of audioset_full and fsd50k.
+BN_RECIPES = {"audioset_full": (1056, 100), "fsd50k": (3000, 24)}
+BN_FW_BYTES, BN_BW_BYTES = 8, 12  # read x, write z; read x and dz, write dx
+BN_SEED = 61
+
+
+def bn_layers(target: int) -> dict[tuple[int, int, int, str | None], int]:
+    """B2's BatchNorms at ``target`` frames: (C, H, W, act) -> how many
+    layers of the model have that shape (read by hooks on one eval
+    forward of one clip)."""
+    model = create_model("efficientnet", eff_b=EFF_B, head_num=HEADS).to(DEVICE)
+    seen: dict[tuple[int, int, int, str | None], int] = {}
+
+    def record(mod, args):
+        x, act = args[0], (args[1] if len(args) > 1 else None)
+        key = (x.shape[1], x.shape[2], x.shape[3], act)
+        seen[key] = seen.get(key, 0) + 1
+
+    hooks = [m.register_forward_pre_hook(record) for m in model.modules()
+             if isinstance(m, BatchNorm)]
+    with torch.no_grad():
+        model(torch.zeros(1, target, 128, device=DEVICE))
+    for h in hooks:
+        h.remove()
+    return seen
+
+
+def bn_case(n: int, c: int, h: int, w: int, act: str | None, momentum: float) -> dict:
+    """The kernels against their plain version at one shape: z, the batch
+    mean and unbiased variance (a call at momentum 1), the running
+    statistics after one and two calls from seeded ones, and dx, dweight
+    and dbias; each as max |err| / max |ref|."""
+    gen = torch.Generator(device=DEVICE).manual_seed(BN_SEED + c + h * w)
+    x = (torch.randn((n, c, h, w), generator=gen, device=DEVICE) * 2.0
+         + torch.linspace(-3.0, 3.0, c, device=DEVICE)[:, None, None])
+    dz = torch.randn((n, c, h, w), generator=gen, device=DEVICE)
+    weight = 1.0 + 0.25 * torch.randn(c, generator=gen, device=DEVICE)
+    bias = 0.1 * torch.randn(c, generator=gen, device=DEVICE)
+    rm0 = 0.1 * torch.randn(c, generator=gen, device=DEVICE)
+    rv0 = 1.0 + torch.rand(c, generator=gen, device=DEVICE)
+    outs = {}
+    for side, fn in (("kernel", bn_train.bn_act), ("plain", bn_train.bn_act_plain)):
+        rm, rv = rm0.clone(), rv0.clone()
+        xr, wr, br = (t.clone().requires_grad_() for t in (x, weight, bias))
+        z = fn(xr, rm, rv, wr, br, momentum, BN_EPS, act)
+        z.backward(dz)
+        once = (rm.clone(), rv.clone())
+        with torch.no_grad():
+            fn(x, rm, rv, weight, bias, momentum, BN_EPS, act)
+            bm, bv = torch.zeros(c, device=DEVICE), torch.ones(c, device=DEVICE)
+            fn(x, bm, bv, weight, bias, 1.0, BN_EPS, act)
+        outs[side] = {"z": z.detach(), "batch mean": bm, "batch var": bv,
+                      "running mean 1": once[0], "running var 1": once[1],
+                      "running mean 2": rm, "running var 2": rv, "dx": xr.grad,
+                      "dweight": wr.grad, "dbias": br.grad}
+        del z, xr
+    return {k: float((outs["kernel"][k] - v).abs().max() / v.abs().max())
+            for k, v in outs["plain"].items()}
+
+
+def queued_ms(fn, reps: int = 10, warmup: int = 2) -> float:
+    """Mean device time of ``fn`` over ``reps`` calls (CUDA events), queued
+    behind a sleep of ~50 ms on the card, so that the host's time to
+    launch them does not show between small kernels."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bn_times(n: int, c: int, h: int, w: int, act: str | None) -> dict[str, float]:
+    """Device ms of the forward and the backward at one shape
+    (``queued_ms``): the kernels, the plain version and the library calls
+    (``F.batch_norm`` then ``F.silu``)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(BN_SEED)
+    x = torch.randn((n, c, h, w), generator=gen, device=DEVICE)
+    dz = torch.randn((n, c, h, w), generator=gen, device=DEVICE)
+    weight, bias = torch.ones(c, device=DEVICE), torch.zeros(c, device=DEVICE)
+    rm, rv = torch.zeros(c, device=DEVICE), torch.ones(c, device=DEVICE)
+
+    def library(t, rm_, rv_, w_, b_, m, eps, a):
+        y = F.batch_norm(t, rm_, rv_, w_, b_, True, m, eps)
+        return F.silu(y) if a == "silu" else y
+
+    out = {}
+    for side, fn in (("kernel", bn_train.bn_act), ("plain", bn_train.bn_act_plain),
+                     ("library", library)):
+        with torch.no_grad():
+            out[f"{side} fw"] = queued_ms(
+                lambda: fn(x, rm, rv, weight, bias, BN_MOMENTUM, BN_EPS, act))
+        xg = x.clone().requires_grad_()
+        z = fn(xg, rm, rv, weight, bias, BN_MOMENTUM, BN_EPS, act)
+        out[f"{side} bw"] = queued_ms(lambda: torch.autograd.grad(z, xg, dz, retain_graph=True))
+        del z, xg
+    return out
+
+
+def bn_phase() -> dict:
+    """Phase 15: the BatchNorm kernels at every distinct layer shape of both
+    recipes, held to their plain version at ``F32_REL_BAR``, then timed and
+    summed over a step's layers beside the bytes bound, the plain version
+    and the library calls; the summed kernel time must be at least 40% of
+    the bound in each recipe. An eval forward launches neither kernel."""
+    t_phase = time.perf_counter()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    worst: dict[str, float] = {}
+    record = {"name": "bn_train", "launches": 0}
+    for recipe, (target, batch) in BN_RECIPES.items():
+        layers = bn_layers(target)
+        elements = sum(c * h * w * k for (c, h, w, _), k in layers.items())
+        print(f"{recipe}: {sum(layers.values())} BatchNorms, {len(layers)} distinct (C, H, W, "
+              f"act), {elements:,} elements a clip at T={target}, batch {batch}")
+        check(sum(layers.values()) == 69, f"{recipe}: {sum(layers.values())} BatchNorms")
+        totals: dict[str, float] = {}
+        bound = {"fw": 0.0, "bw": 0.0}
+        for (c, h, w, act), count in sorted(layers.items(), key=lambda kv: -kv[0][1] * kv[0][2]):
+            before = (bn_train.LAUNCHES_FW, bn_train.LAUNCHES_BW)
+            errs = bn_case(batch, c, h, w, act, BN_MOMENTUM)
+            check((bn_train.LAUNCHES_FW - before[0], bn_train.LAUNCHES_BW - before[1]) == (3, 1),
+                  "the kernels were not launched at their shape")
+            for k, e in errs.items():
+                worst[k] = max(worst.get(k, 0.0), e)
+            bad = {k: e for k, e in errs.items() if not e <= F32_REL_BAR}
+            check(not bad, f"{recipe} [{batch}, {c}, {h}, {w}] act {act}: off the plain "
+                           f"version by {bad} of max |ref| (bar {F32_REL_BAR})")
+            ms = bn_times(batch, c, h, w, act)
+            elems = batch * c * h * w
+            for k, v in ms.items():
+                totals[k] = totals.get(k, 0.0) + count * v
+            bound["fw"] += count * elems * BN_FW_BYTES / PEAK_BYTES_S * 1e3
+            bound["bw"] += count * elems * BN_BW_BYTES / PEAK_BYTES_S * 1e3
+            launch = [bn_train.geometry(batch, c, h * w, 4 if h * w % 4 == 0 else 1, k, sms)
+                      for k in (1, 2)]
+            print(f"  [{batch}, {c}, {h}, {w}] act {act} x{count}: "
+                  + ", ".join(f"{d} G={g} {'held' if held else 'streamed'}"
+                              for d, (g, held) in zip(("fw", "bw"), launch))
+                  + f"; worst err {max(errs.values()):.2e}; "
+                  f"ms fw kernel {ms['kernel fw']:.4f} plain {ms['plain fw']:.4f} library "
+                  f"{ms['library fw']:.4f}, bw kernel {ms['kernel bw']:.4f} plain "
+                  f"{ms['plain bw']:.4f} library {ms['library bw']:.4f}; bound fw "
+                  f"{elems * BN_FW_BYTES / PEAK_BYTES_S * 1e3:.4f} bw "
+                  f"{elems * BN_BW_BYTES / PEAK_BYTES_S * 1e3:.4f}")
+            torch.cuda.empty_cache()
+        kernel = totals["kernel fw"] + totals["kernel bw"]
+        bound_ms = bound["fw"] + bound["bw"]
+        print(f"{recipe}, a step's 69 BatchNorms: bound {bound_ms:.3f} ms (bytes: fw "
+              f"{bound['fw']:.3f}, bw {bound['bw']:.3f}), kernel {kernel:.3f} ms (fw "
+              f"{totals['kernel fw']:.3f}, bw {totals['kernel bw']:.3f}; {bound_ms / kernel:.1%} "
+              f"of the bound), plain {totals['plain fw'] + totals['plain bw']:.3f} ms (fw "
+              f"{totals['plain fw']:.3f}, bw {totals['plain bw']:.3f}), library "
+              f"{totals['library fw'] + totals['library bw']:.3f} ms (fw "
+              f"{totals['library fw']:.3f}, bw {totals['library bw']:.3f}) ({card()})")
+        check(bound_ms / kernel >= 0.4, f"{recipe}: the kernels at {bound_ms / kernel:.1%} of "
+                                        f"their bound (want 40%)")
+        record[recipe] = {"bound_ms": bound_ms, "kernel_ms": kernel,
+                          "plain_ms": totals["plain fw"] + totals["plain bw"],
+                          "library_ms": totals["library fw"] + totals["library bw"]}
+    print("worst error over the shapes, of max |ref|: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()) + f" (bar {F32_REL_BAR})")
+    model = create_model("efficientnet", eff_b=EFF_B, head_num=HEADS).to(DEVICE)
+    before = (bn_train.LAUNCHES_FW, bn_train.LAUNCHES_BW)
+    with torch.no_grad():
+        model(torch.randn(2, TARGET, 128, device=DEVICE))
+    torch.cuda.synchronize()
+    eval_launches = (bn_train.LAUNCHES_FW - before[0], bn_train.LAUNCHES_BW - before[1])
+    print(f"eval forward: BatchNorm kernel launches {eval_launches}")
+    check(eval_launches == (0, 0), "an eval forward launched the BatchNorm kernels")
+    record["launches"] = bn_train.LAUNCHES_FW + bn_train.LAUNCHES_BW
+    print(f"phase 15: {time.perf_counter() - t_phase:.1f} s")
+    return record
+
+
 # ---------------------------------------------------------------- phase 6
 
 # audioset_full (psla_tpu/config.py:169-173, 86-91): B2, 4 heads, 527
@@ -1336,13 +1534,19 @@ def step_held_to_plain(cfg: PreprocessConfig, batch: dict, make_state, what: str
           f"{int((batch['length'] < batch['length'].max()).sum())} short clips")
 
     before = {k: v.clone() for k, v in state.model.state_dict().items()}
+    # the BatchNorm kernels take every float32 layer, once each way
+    n_bn = sum(isinstance(m, BatchNorm) for m in state.model.modules())
+    want_bn = (n_bn, n_bn) if dtype == torch.float32 else (0, 0)
     torch.cuda.synchronize()
-    fbank_cuda.LAUNCHES = 0
+    fbank_cuda.LAUNCHES = bn_train.LAUNCHES_FW = bn_train.LAUNCHES_BW = 0
     state, metrics = step(state, batch, draws)
     torch.cuda.synchronize()
     launches = fbank_cuda.LAUNCHES
-    print(f"launches in one train step: {launches}")
+    bn_launches = (bn_train.LAUNCHES_FW, bn_train.LAUNCHES_BW)
+    print(f"launches in one train step: fbank {launches}; BatchNorm forward and backward "
+          f"{bn_launches} ({n_bn} BatchNorms)")
     check(launches == 1, f"{launches} fbank launches in one train step")
+    check(bn_launches == want_bn, f"BatchNorm kernel launches {bn_launches}, want {want_bn}")
     loss = float(metrics["loss"])
     check(np.isfinite(loss), f"train loss {loss}")
     plain_state, plain_metrics = plain_step(plain_state, batch, draws)
@@ -3285,10 +3489,11 @@ def dp_step_rank(rank: int, store: str, root: str, world: int, backend: str):
         gen = torch.Generator(device=DEVICE).manual_seed(0)
         draws = draw_train(gen, state.model, STEP_BATCH, cfg)
         torch.cuda.synchronize()
-        fbank_cuda.LAUNCHES = 0
+        fbank_cuda.LAUNCHES = bn_train.LAUNCHES_FW = bn_train.LAUNCHES_BW = 0
         state, metrics = step(state, batch, draws)
         torch.cuda.synchronize()
         out = {"launches": fbank_cuda.LAUNCHES, "loss": float(metrics["loss"]),
+               "bn_launches": (bn_train.LAUNCHES_FW, bn_train.LAUNCHES_BW),
                "state": {k: v.detach().cpu().clone()
                          for k, v in state.model.state_dict().items()}}
         for _ in range(warm):
@@ -3353,6 +3558,10 @@ def dp_world(held: dict, held_loss: float, one: tuple[float, float], world: int,
           f"equal")
     check(all(g["launches"] == 1 and g["timed_launches"] == timed for g in got),
           f"world {world}: not one fbank launch a rank a step")
+    print(f"(b) BatchNorm kernel launches a rank in the held step (synced BatchNorm): "
+          f"{[g['bn_launches'] for g in got]}")
+    check(all(tuple(g["bn_launches"]) == (0, 0) for g in got),
+          f"world {world}: the synced BatchNorm launched the one-process kernels")
     check(loss_err <= DP_LOSS_ATOL and diff.max() <= DP_PARAM_LRS * lr
           and diff.mean() <= DP_PARAM_MEAN and np.percentile(diff, 99) <= DP_PARAM_P99
           and stats_err <= STATS_ATOL, f"world-{world} step off (a)'s")
@@ -4308,6 +4517,8 @@ def main(argv=None) -> int:
     record = kernel_phase()
     record["launches"] = serving_phase(args.profile)
     records = [record] + mbconv_phase()
+    torch.cuda.empty_cache()
+    records.append(bn_phase())
     torch.cuda.empty_cache()
     record["launches_per_train_step"], step_clips_s, step_ms = training_phase(args.profile)
     torch.cuda.empty_cache()

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from psla_tpu_torch.models.pooling import HeadPool
+from psla_tpu_torch.ops import bn_train
 from psla_tpu_torch.ops.qsave import DwConvQ8Save, qdq
 from psla_tpu_torch.parallel.distributed import gather_rows
 
@@ -136,7 +137,10 @@ class BatchNorm(nn.Module):
     Train (``psla_tpu.models.layers.ReferenceBatchNorm``): normalize with
     the biased batch variance; fold the unbiased one (x n/(n-1),
     n = B*H*W) into ``running_var`` with ``momentum`` (0.01 by default). That is
-    ``F.batch_norm``'s own rule, and it is one call each way where flax's
+    ``F.batch_norm``'s own rule. A float32 input takes
+    ``ops.bn_train.bn_act``: on a card one hand-written kernel each way,
+    with the activation that follows (``act``, none or SiLU) fused in; on
+    the CPU its plain version, ``F.batch_norm`` then the activation. flax's
     formula would be several passes and keep one more activation for
     backward. flax takes the batch variance as E[x^2] - E[x]^2 in float32
     (clipped at 0), ``F.batch_norm`` subtracts the mean first, which is the
@@ -146,7 +150,8 @@ class BatchNorm(nn.Module):
     (the recomputed forward of a rematerialized block) the statistics are
     folded into copies, so a step updates the buffers once.
 
-    A bfloat16 input in train mode: ``F.batch_norm`` takes the statistics
+    A bfloat16 input in train mode: ``F.batch_norm`` (``bn_act_plain``, on
+    a card too) takes the statistics
     in float32 and rounds the normalized output once to bfloat16, as flax's
     ``BatchNorm(dtype=bfloat16)`` does (tests/test_torch_bf16_train.py).
 
@@ -162,6 +167,10 @@ class BatchNorm(nn.Module):
     data-parallel step). Train mode then takes the statistics of the
     global batch (``SyncBatchNormFn``), as GSPMD does for the JAX package's
     sharded batch. None is the one-process layer.
+
+    ``forward(x, act)`` applies ``activation(., act)`` to the normalized
+    value (``conv_bn`` passes its activation here, so that the train-mode
+    kernels can fuse it).
     """
 
     def __init__(self, num_features: int, eps: float = BN_EPS,
@@ -178,30 +187,38 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
         self.train(False)  # eval until asked, like the model that holds it
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
+    def forward(self, x: torch.Tensor, act: str | None = None) -> torch.Tensor:
+        """The normalized ``x``, then ``activation(., act)``."""
+        if not self.training:
+            mul = self.eval_scale()
+            return activation(_eval_normalize(
+                x, mul[:, None, None], self.running_mean[:, None, None],
+                self.bias[:, None, None], self.float_out), act)
+        mean, var = self.running_mean, self.running_var
+        if self.replaying:
+            mean, var = mean.clone(), var.clone()
+        if self.group is not None:
             if self.float_out:  # normalized in float32, never rounded to x's dtype
                 x = x.to(self.weight.dtype)
-            mean, var = self.running_mean, self.running_var
-            if self.replaying:
-                mean, var = mean.clone(), var.clone()
-            if self.group is None:
-                y = F.batch_norm(x, mean, var, self.weight, self.bias, True,
-                                 self.momentum, self.eps)
-                y = _GradInOwnStrides.apply(y)
-            else:
-                y, batch_mean, batch_var = SyncBatchNormFn.apply(
-                    x, self.weight, self.bias, self.eps, self.group)
-                # F.batch_norm's rule, over the global count n
-                n = x.numel() // x.shape[1] * dist.get_world_size(self.group)
-                with torch.no_grad():
-                    m = self.momentum
-                    mean.mul_(1.0 - m).add_(batch_mean, alpha=m)
-                    var.mul_(1.0 - m).add_(batch_var * (n / (n - 1)), alpha=m)
-            return y
-        mul = self.eval_scale()
-        return _eval_normalize(x, mul[:, None, None], self.running_mean[:, None, None],
-                               self.bias[:, None, None], self.float_out)
+            y, batch_mean, batch_var = SyncBatchNormFn.apply(
+                x, self.weight, self.bias, self.eps, self.group)
+            # F.batch_norm's rule, over the global count n
+            n = x.numel() // x.shape[1] * dist.get_world_size(self.group)
+            with torch.no_grad():
+                m = self.momentum
+                mean.mul_(1.0 - m).add_(batch_mean, alpha=m)
+                var.mul_(1.0 - m).add_(batch_var * (n / (n - 1)), alpha=m)
+            return activation(y, act)
+        fused = act if act in bn_train.ACTS else None
+        if x.dtype == torch.float32:  # the kernels on a card, their plain version here
+            y = bn_train.bn_act(x, mean, var, self.weight, self.bias, self.momentum,
+                                self.eps, fused)
+        else:
+            if self.float_out:
+                x = x.to(self.weight.dtype)
+            y = bn_train.bn_act_plain(x, mean, var, self.weight, self.bias, self.momentum,
+                                      self.eps, fused)
+        return y if fused == act else activation(y, act)
 
     def eval_scale(self) -> torch.Tensor:
         """[C] float32 scale of eval mode, weight / sqrt(running_var + eps)."""
@@ -221,32 +238,6 @@ def _eval_normalize(x: torch.Tensor, mul: torch.Tensor, mean: torch.Tensor,
         return torch.addcmul(shift, x, mul)
     y = (x.to(mul.dtype) - mean) * mul + bias
     return y if float_out else y.to(x.dtype)
-
-
-class _GradInOwnStrides(torch.autograd.Function):
-    """The identity, whose backward hands on the gradient in exactly the
-    strides of its input (a copy where they differ, else the gradient
-    itself). ``F.batch_norm``'s train-mode backward on the CPU computes
-    wrong dx, dweight and dbias (off by more than their norm) when the
-    output's gradient is channels-last with a non-canonical stride on a
-    size-1 last dimension, on a contiguous input: what
-    ``EffNetAttention.forward``'s ``mean(dim=2).transpose(1, 2)`` hands
-    back when one time step is left after the last stride (T' = 1, a
-    ``target_length`` of 32 or less). ``g.contiguous(memory_format=...)``
-    would not do: its check ignores size-1 dimensions and can return the
-    odd strides unchanged."""
-
-    @staticmethod
-    def forward(ctx, y):
-        ctx.size, ctx.stride = y.shape, y.stride()
-        return y.view_as(y)
-
-    @staticmethod
-    def backward(ctx, g):
-        if g.stride() == ctx.stride:
-            return g
-        return torch.empty_strided(ctx.size, ctx.stride, dtype=g.dtype,
-                                   device=g.device).copy_(g)
 
 
 class SyncBatchNormFn(torch.autograd.Function):
@@ -344,8 +335,9 @@ class FoldedBatchNorm(nn.Module):
                                "train the source model and make a new copy")
         return super().train(False)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _eval_normalize(x, self.mul, self.mean, self.bias, self.float_out, self.shift)
+    def forward(self, x: torch.Tensor, act: str | None = None) -> torch.Tensor:
+        return activation(
+            _eval_normalize(x, self.mul, self.mean, self.bias, self.float_out, self.shift), act)
 
 
 # the example batch [B, T, F] whose forward finds each weight's compute dtype
@@ -439,4 +431,4 @@ def conv_bn(x: torch.Tensor, conv: SameConv2d, bn: BatchNorm,
         x = DwConvQ8Save.apply(x, conv.weight.to(x.dtype), conv.stride[0], padding)
     else:
         x = conv(qdq(x, axis=1) if act_compress == "qdq" else x)
-    return activation(bn(x), act)
+    return bn(x, act)

@@ -10,7 +10,7 @@ BatchNorm such a gradient when one time step is left after the last stride
 (T' = 1): the pooling's ``mean(dim=2).transpose(1, 2)`` in
 ``EffNetAttention`` and ``ResNetAttention``. The port's ``BatchNorm`` hands
 ``F.batch_norm`` the gradient in its output's own strides
-(``layers._GradInOwnStrides``). tests/test_torch_qsave.py holds B0 at
+(``ops.bn_train._GradInOwnStrides``). tests/test_torch_qsave.py holds B0 at
 T' = 1 to the JAX model.
 
 Bars: bit for bit. The layer on the odd-strided gradient against the same

@@ -37,7 +37,7 @@ NCHW (transposed) on the port's. Bars:
   ``EffNetAttention.forward``'s pooling hands the head's train-mode
   BatchNorm a gradient whose strides ``F.batch_norm``'s CPU backward gets
   wrong (tests/test_torch_batchnorm_strides.py); without
-  ``models.layers._GradInOwnStrides`` the gradients miss JAX's by 100-180%
+  ``ops.bn_train._GradInOwnStrides`` the gradients miss JAX's by 100-180%
   of their norm (the stem's weight gradient by 37.6 against a bar of
   4.5e-5).
 - The JAX package's bars against the uncompressed model
