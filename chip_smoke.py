@@ -266,6 +266,8 @@ result line):
    neither kernel. Every held train step (phases 6, 9, 10, 13) counts the
    kernels' launches: one forward and one backward a BatchNorm in float32
    (69 + 69 for B2), none in bf16; phase 12's synced ranks launch none.
+   The kernels' record holds phase 6's count as ``launches`` (what the
+   end of the run checks) and this phase's own as ``launches_sweep``.
 
 The line before the last is a JSON object with one record per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -1293,7 +1295,7 @@ def bn_case(n: int, c: int, h: int, w: int, act: str | None, momentum: float) ->
     """The kernels against their plain version at one shape: z, the batch
     mean and unbiased variance (a call at momentum 1), the running
     statistics after one and two calls from seeded ones, and dx, dweight
-    and dbias; each as max |err| / max |ref|."""
+    and dbias; each as (max |err|, max |err| / max |ref|)."""
     gen = torch.Generator(device=DEVICE).manual_seed(BN_SEED + c + h * w)
     x = (torch.randn((n, c, h, w), generator=gen, device=DEVICE) * 2.0
          + torch.linspace(-3.0, 3.0, c, device=DEVICE)[:, None, None])
@@ -1318,8 +1320,8 @@ def bn_case(n: int, c: int, h: int, w: int, act: str | None, momentum: float) ->
                       "running mean 2": rm, "running var 2": rv, "dx": xr.grad,
                       "dweight": wr.grad, "dbias": br.grad}
         del z, xr
-    return {k: float((outs["kernel"][k] - v).abs().max() / v.abs().max())
-            for k, v in outs["plain"].items()}
+    errs = {k: float((outs["kernel"][k] - v).abs().max()) for k, v in outs["plain"].items()}
+    return {k: (e, e / float(outs["plain"][k].abs().max())) for k, e in errs.items()}
 
 
 def queued_ms(fn, reps: int = 10, warmup: int = 2) -> float:
@@ -1372,11 +1374,17 @@ def bn_phase() -> dict:
     recipes, held to their plain version at ``F32_REL_BAR``, then timed and
     summed over a step's layers beside the bytes bound, the plain version
     and the library calls; the summed kernel time must be at least 40% of
-    the bound in each recipe. An eval forward launches neither kernel."""
+    the bound in each recipe. An eval forward launches neither kernel.
+    Returns the kernels' record: its times are audioset_full's (the main
+    path's shapes), ``launches_sweep`` counts this phase's launches; the
+    main path's count a train step is phase 6's (``main`` sets it)."""
     t_phase = time.perf_counter()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     worst: dict[str, float] = {}
-    record = {"name": "bn_train", "launches": 0}
+    worst_abs = 0.0
+    bn_train.LAUNCHES_FW = bn_train.LAUNCHES_BW = 0
+    record = {"name": "bn_train", "route": "cuda", "source": "psla_tpu_torch/csrc/bn_train.cu",
+              "replaces": None, "bound_by": "bytes", "recipes": {}}
     for recipe, (target, batch) in BN_RECIPES.items():
         layers = bn_layers(target)
         elements = sum(c * h * w * k for (c, h, w, _), k in layers.items())
@@ -1390,9 +1398,10 @@ def bn_phase() -> dict:
             errs = bn_case(batch, c, h, w, act, BN_MOMENTUM)
             check((bn_train.LAUNCHES_FW - before[0], bn_train.LAUNCHES_BW - before[1]) == (3, 1),
                   "the kernels were not launched at their shape")
-            for k, e in errs.items():
+            for k, (e_abs, e) in errs.items():
                 worst[k] = max(worst.get(k, 0.0), e)
-            bad = {k: e for k, e in errs.items() if not e <= F32_REL_BAR}
+                worst_abs = max(worst_abs, e_abs)
+            bad = {k: e for k, (_, e) in errs.items() if not e <= F32_REL_BAR}
             check(not bad, f"{recipe} [{batch}, {c}, {h}, {w}] act {act}: off the plain "
                            f"version by {bad} of max |ref| (bar {F32_REL_BAR})")
             ms = bn_times(batch, c, h, w, act)
@@ -1406,7 +1415,7 @@ def bn_phase() -> dict:
             print(f"  [{batch}, {c}, {h}, {w}] act {act} x{count}: "
                   + ", ".join(f"{d} G={g} {'held' if held else 'streamed'}"
                               for d, (g, held) in zip(("fw", "bw"), launch))
-                  + f"; worst err {max(errs.values()):.2e}; "
+                  + f"; worst err {max(e for _, e in errs.values()):.2e}; "
                   f"ms fw kernel {ms['kernel fw']:.4f} plain {ms['plain fw']:.4f} library "
                   f"{ms['library fw']:.4f}, bw kernel {ms['kernel bw']:.4f} plain "
                   f"{ms['plain bw']:.4f} library {ms['library bw']:.4f}; bound fw "
@@ -1424,11 +1433,16 @@ def bn_phase() -> dict:
               f"{totals['library fw']:.3f}, bw {totals['library bw']:.3f}) ({card()})")
         check(bound_ms / kernel >= 0.4, f"{recipe}: the kernels at {bound_ms / kernel:.1%} of "
                                         f"their bound (want 40%)")
-        record[recipe] = {"bound_ms": bound_ms, "kernel_ms": kernel,
-                          "plain_ms": totals["plain fw"] + totals["plain bw"],
-                          "library_ms": totals["library fw"] + totals["library bw"]}
+        record["recipes"][recipe] = {
+            "bound_ms": bound_ms, "ms": kernel,
+            "plain_ms": totals["plain fw"] + totals["plain bw"],
+            "library_ms": totals["library fw"] + totals["library bw"]}
     print("worst error over the shapes, of max |ref|: "
-          + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()) + f" (bar {F32_REL_BAR})")
+          + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+          + f" (bar {F32_REL_BAR}); worst max abs err {worst_abs:.3e}")
+    record.update(record["recipes"]["audioset_full"])
+    record["max_abs_err"] = worst_abs
+    record["launches_sweep"] = bn_train.LAUNCHES_FW + bn_train.LAUNCHES_BW
     model = create_model("efficientnet", eff_b=EFF_B, head_num=HEADS).to(DEVICE)
     before = (bn_train.LAUNCHES_FW, bn_train.LAUNCHES_BW)
     with torch.no_grad():
@@ -1437,7 +1451,6 @@ def bn_phase() -> dict:
     eval_launches = (bn_train.LAUNCHES_FW - before[0], bn_train.LAUNCHES_BW - before[1])
     print(f"eval forward: BatchNorm kernel launches {eval_launches}")
     check(eval_launches == (0, 0), "an eval forward launched the BatchNorm kernels")
-    record["launches"] = bn_train.LAUNCHES_FW + bn_train.LAUNCHES_BW
     print(f"phase 15: {time.perf_counter() - t_phase:.1f} s")
     return record
 
@@ -1509,7 +1522,8 @@ def step_held_to_plain(cfg: PreprocessConfig, batch: dict, make_state, what: str
     the same step, with the same draws, through the plain fbank ('fft64'):
     the loss, the running statistics and the parameters (the latter within
     2 x the step's learning rate). Returns (the stepped state, its loss, its state_dict, the step
-    function, the generator, the draws)."""
+    function, the generator, the draws, the BatchNorm kernels' (forward, backward) launches in
+    the step)."""
     size = len(batch["wav"])
     state = make_state()
     dtype = getattr(state.model, "dtype", torch.float32)
@@ -1571,7 +1585,7 @@ def step_held_to_plain(cfg: PreprocessConfig, batch: dict, make_state, what: str
     check(param_err <= param_atol, f"parameters off by {param_err}")
     check(moved == len(params) and stats_moved == len(stats),
           f"{moved}/{len(params)} parameters and {stats_moved}/{len(stats)} statistics moved")
-    return state, loss, after, step, gen, draws
+    return state, loss, after, step, gen, draws, bn_launches
 
 
 def timed_steps(step, state, batch: dict, gen: torch.Generator, cfg: PreprocessConfig,
@@ -1616,14 +1630,15 @@ def timed_steps(step, state, batch: dict, gen: torch.Generator, cfg: PreprocessC
     return state, device_ms, wall_ms, peak, losses
 
 
-def training_phase(profile: bool) -> tuple[int, float, float]:
+def training_phase(profile: bool) -> tuple[int, float, float, tuple[int, int]]:
     """The audioset_full train step at full width; returns the fbank
-    kernel's launches in the step that is held to the plain fbank, and the
-    timed steps' clips/s and device ms."""
+    kernel's launches in the step that is held to the plain fbank, the
+    timed steps' clips/s and device ms, and the BatchNorm kernels'
+    (forward, backward) launches in the held step."""
     cfg = train_config()
     batch = train_batch(cfg)
     sd = seeded_state_dict(SEEDS[0])
-    state, loss, after, step, gen, draws = step_held_to_plain(
+    state, loss, after, step, gen, draws, bn_launches = step_held_to_plain(
         cfg, batch, lambda: train_state(sd), "train step")
     launches = 1  # checked there
     stats = [k for k in after if k.endswith(("running_mean", "running_var"))]
@@ -1654,7 +1669,7 @@ def training_phase(profile: bool) -> tuple[int, float, float]:
     fbank_at_train_batch(cfg, batch, draws, float(np.mean(device_ms)))
     if profile:
         profile_train_step(state, step, batch, gen, cfg)
-    return launches, STEP_BATCH / wall_ms * 1e3, float(np.mean(device_ms))
+    return launches, STEP_BATCH / wall_ms * 1e3, float(np.mean(device_ms)), bn_launches
 
 
 def fbank_at_train_batch(cfg: PreprocessConfig, batch: dict, draws, step_ms: float):
@@ -2622,7 +2637,7 @@ def fsd_train_step() -> tuple[float, float]:
     cfg = FSD.preprocess_config()
     batch = train_batch(cfg, seed=23, batch=FSD.batch_size, n_class=FSD.n_class)
     sd = seeded_state_dict(SEEDS[0], n_class=FSD.n_class)
-    state, _, _, step, gen, _ = step_held_to_plain(
+    state, _, _, step, gen, _, _ = step_held_to_plain(
         cfg, batch, lambda: train_state(sd, n_class=FSD.n_class, lr=FSD.lr,
                                         steps_per_epoch=FSD_STEPS_PER_EPOCH),
         "fsd50k train step")
@@ -2885,7 +2900,7 @@ def backbone_train_step(name: str, b2: tuple[float, float], profile: bool) -> in
     cfg = train_config()
     sd = seeded_state_dict(BACKBONE_SEEDS[0], model=name)
     batch = train_batch(cfg)
-    state, _, _, step, gen, _ = step_held_to_plain(
+    state, _, _, step, gen, _, _ = step_held_to_plain(
         cfg, batch, lambda: train_state(sd, model_name=name), f"{name} train step")
     state, device_ms, wall_ms, peak, losses = timed_steps(step, state, batch, gen, cfg)
     print(f"{name} train step ({arch(state.model)}, batch {STEP_BATCH}), {TIMED_STEPS} "
@@ -3851,7 +3866,7 @@ def bf16_held_steps(cfg: PreprocessConfig, batch: dict, sd: dict):
     fbank's, then with remat, then q8save and qdq from the same start
     against the uncompressed step. Returns (step, generator, the held
     state) for the timing."""
-    state, loss, after, step, gen, draws = step_held_to_plain(
+    state, loss, after, step, gen, draws, _ = step_held_to_plain(
         cfg, batch, lambda: train_state(sd, dtype=torch.bfloat16), "bf16 train step")
     check(all(t.dtype == torch.float32 for t in after.values()),
           "a bf16 step left a parameter or statistic outside float32")
@@ -4518,9 +4533,13 @@ def main(argv=None) -> int:
     record["launches"] = serving_phase(args.profile)
     records = [record] + mbconv_phase()
     torch.cuda.empty_cache()
-    records.append(bn_phase())
+    bn_record = bn_phase()
+    records.append(bn_record)
     torch.cuda.empty_cache()
-    record["launches_per_train_step"], step_clips_s, step_ms = training_phase(args.profile)
+    record["launches_per_train_step"], step_clips_s, step_ms, bn_step = training_phase(
+        args.profile)
+    bn_record["launches_per_train_step"] = list(bn_step)
+    bn_record["launches"] = sum(bn_step)
     torch.cuda.empty_cache()
     record["launches_trainer_run"], record["launches_per_epoch"] = trainer_phase(
         args.profile, step_clips_s)

@@ -501,28 +501,17 @@ bool valid(int n, int c, int hw, int vw, int cluster, int held, int act, int ope
   return true;
 }
 
-constexpr int kDevices = 64;
-
-// Allows the held runs' shared memory and clusters of 16, once per kernel
-// and device (`ready`: one flag a device, the kernel's own).
-template <typename Kernel>
-int prepare(Kernel kernel, bool (&ready)[kDevices]) {
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess || (device < kDevices && ready[device])) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemCap);
+// Allows the held runs' shared memory and clusters of 16, then launches
+// `blocks` blocks in clusters of `cluster`.
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, int blocks, int cluster, size_t smem, cudaStream_t stream,
+           Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         kSmemCap);
   if (err == cudaSuccess) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   }
-  if (err == cudaSuccess && device < kDevices) ready[device] = true;
-  return static_cast<int>(err);
-}
-
-template <typename Kernel, typename... Args>
-int launch(Kernel kernel, bool (&ready)[kDevices], int blocks, int cluster, size_t smem,
-           cudaStream_t stream, Args... args) {
-  const int prepared = prepare(kernel, ready);
-  if (prepared != 0) return prepared;
+  if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3(blocks);
   config.blockDim = dim3(kThreads);
@@ -535,7 +524,7 @@ int launch(Kernel kernel, bool (&ready)[kDevices], int blocks, int cluster, size
   attr[0].val.clusterDim.z = 1;
   config.attrs = attr;
   config.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&config, kernel, args...);
+  err = cudaLaunchKernelEx(&config, kernel, args...);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -544,11 +533,10 @@ template <int ACT, bool HELD, int VW>
 int fw(const float* x, float* z, const float* weight, const float* bias, float* running_mean,
        float* running_var, float* save_mean, float* save_invstd, int n, int c, int hw,
        int cluster, double momentum, double eps, cudaStream_t stream) {
-  static bool ready[kDevices] = {};
   const int hwv = hw / VW;
   const size_t smem = HELD ? held_bytes(n, hwv, VW, cluster, 1) : 0;
-  return launch(psla_bn_fw_train<ACT, HELD, VW>, ready, c * cluster, cluster, smem, stream, x,
-                z, weight, bias, running_mean, running_var, save_mean, save_invstd, n, c, hwv,
+  return launch(psla_bn_fw_train<ACT, HELD, VW>, c * cluster, cluster, smem, stream, x, z,
+                weight, bias, running_mean, running_var, save_mean, save_invstd, n, c, hwv,
                 momentum, eps);
 }
 
@@ -556,11 +544,10 @@ template <int ACT, bool HELD, int VW>
 int bw(const float* x, const float* dz, const float* weight, const float* bias,
        const float* save_mean, const float* save_invstd, float* dx, float* dweight,
        float* dbias, int n, int c, int hw, int cluster, cudaStream_t stream) {
-  static bool ready[kDevices] = {};
   const int hwv = hw / VW;
   const size_t smem = HELD ? held_bytes(n, hwv, VW, cluster, 2) : 0;
-  return launch(psla_bn_bw_train<ACT, HELD, VW>, ready, c * cluster, cluster, smem, stream, x,
-                dz, weight, bias, save_mean, save_invstd, dx, dweight, dbias, n, c, hwv);
+  return launch(psla_bn_bw_train<ACT, HELD, VW>, c * cluster, cluster, smem, stream, x, dz,
+                weight, bias, save_mean, save_invstd, dx, dweight, dbias, n, c, hwv);
 }
 
 // The eight instantiations of each direction, by (act, held, vw == 4).
