@@ -68,7 +68,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--loss", choices=["BCE", "CE"], default=None)
     p.add_argument("--metrics", choices=["mAP", "acc"], default=None)
     # model
-    p.add_argument("--model", choices=["efficientnet", "resnet", "mbnet"], default=None)
+    p.add_argument("--model", choices=["efficientnet", "resnet", "mbnet", "ast"], default=None)
     p.add_argument("--eff_b", type=int, default=None)
     p.add_argument("--att_head", type=int, default=None)
     p.add_argument("--impretrain", type=_bool, default=None)

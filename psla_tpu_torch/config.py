@@ -3,7 +3,8 @@
 
 One dataclass replaces the reference's bash-variable -> argparse -> dict
 chain (egs/*/run.sh + src/run.py:25-80). It has the JAX package's fields,
-defaults and presets, so both write the same ``config.json`` keys. Fixes of
+defaults and presets, so both write the same ``config.json`` keys, and
+beyond them AST's ``lrscheduler_step`` and its AudioSet preset. Fixes of
 reference quirks kept from the JAX package: ``weight_decay`` and ``noise``
 are honored (the reference ignores both flags), and ``att_head`` values
 other than 4 take effect.
@@ -62,6 +63,10 @@ class ExperimentConfig:
     warmup_update_every: int = 50
     lrscheduler_start: int = 10
     lrscheduler_decay: float = 0.5
+    # epochs between the decay's milestones: PSLA's 5 (traintest.py), AST's
+    # lrscheduler_step (1 in its AudioSet recipe; a preset's value, no flag);
+    # not in the JAX package
+    lrscheduler_step: int = 5
     loss: str = "BCE"
     metrics: str = "mAP"
     # sampling
@@ -170,10 +175,22 @@ AUDIOSET_BALANCED = dict(
     freqm=48, timem=192, mixup=0.5, bal=False, target_length=1056,
 )
 
+# The Audio Spectrogram Transformer's full-AudioSet recipe (github.com/
+# YuanGongND/ast, egs/audioset/run.sh, set=full; its dataloader is PSLA's):
+# AST-Base/16 from scratch (impretrain False: DeiT's ImageNet weights need a
+# download), T=1024, batch 12, lr 1e-5, decay by half every epoch from 2.
+AUDIOSET_FULL_AST = dict(
+    dataset="audioset", n_class=527, model="ast", impretrain=False, lr=1e-5,
+    batch_size=12, n_epochs=5, wa_start=1, wa_end=5, lrscheduler_start=2,
+    lrscheduler_step=1, lrscheduler_decay=0.5, freqm=48, timem=192, mixup=0.5, bal=True,
+    target_length=1024, dataset_mean=-4.2677393, dataset_std=4.5689974,
+)
+
 PRESETS = {
     "fsd50k": FSD50K,
     "audioset_full": AUDIOSET_FULL,
     "audioset_balanced": AUDIOSET_BALANCED,
+    "audioset_full_ast": AUDIOSET_FULL_AST,
 }
 
 

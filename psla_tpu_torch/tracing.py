@@ -33,6 +33,11 @@ SPANS = (
     "psla.train.draws",  # train.step.draw_train
     "psla.prefetch.wait",  # data.device_prefetch: the step waiting for a batch
     "psla.prefetch.stage",  # data.device_prefetch's producer staging a batch
+    # inside the forward of models/spectrogram_transformer.ASTModel
+    "psla.ast.embed",  # patches, the cls and dist tokens, pos_embed
+    "psla.ast.attention",  # a block's LN1, qkv, attention and proj (one a block)
+    "psla.ast.mlp",  # a block's LN2, fc1, GELU and fc2 (one a block)
+    "psla.ast.head",  # the final LayerNorm, the tokens' mean, mlp_head, sigmoid
 )
 
 _OFF = contextlib.nullcontext()

@@ -116,6 +116,7 @@ class Trainer:
             self.steps_per_epoch,
             lrscheduler_start=config.lrscheduler_start,
             lrscheduler_decay=config.lrscheduler_decay,
+            lrscheduler_step=config.lrscheduler_step,
             warmup=config.warmup,
             warmup_steps=config.warmup_steps,
             warmup_update_every=config.warmup_update_every,
@@ -178,12 +179,14 @@ class Trainer:
         from ``seed`` (default: the config's; on the CPU): its compute
         ``dtype`` and ``act_compress`` the config's, as the JAX trainer
         builds its model (training and validation run it); parameters,
-        statistics and so checkpoints stay float32."""
+        statistics and so checkpoints stay float32. AST's positional
+        embedding is sized for the config's mel bins and target length."""
         cfg = self.config
         return create_model(
             cfg.model, label_dim=cfg.n_class, eff_b=cfg.eff_b, head_num=cfg.att_head,
             dtype=getattr(torch, cfg.dtype), act_compress=cfg.act_compress,
             remat=cfg.remat, bn_momentum=cfg.bn_momentum,
+            input_fdim=cfg.num_mel_bins, input_tdim=cfg.target_length,
             generator=torch.Generator().manual_seed(cfg.seed if seed is None else seed),
         )
 

@@ -9,8 +9,10 @@ here it is ``torch.optim.Adam`` itself, on every parameter too.
 
 The schedule (src/traintest.py:56, 92-96) is a staircase warmup, lr =
 (step/1000) * base updated every 50 steps while step <= 1000, and MultiStepLR
-decay by ``decay`` at epochs start, start+5, ... (1-indexed epochs, applied
-from the epoch after each milestone): a pure function of the global step.
+decay by ``decay`` at epochs start, start + step, ... (1-indexed epochs,
+applied from the epoch after each milestone; step 5 in PSLA's traintest.py,
+AST's ``--lrscheduler_step``, 1 in its AudioSet recipe): a pure function of
+the global step.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ def psla_lr_schedule(
     lrscheduler_start: int = 10,
     lrscheduler_decay: float = 0.5,
     warmup: bool = True,
-    milestone_stride: int = 5,
+    lrscheduler_step: int = 5,
     warmup_steps: int = 1000,
     warmup_update_every: int = 50,
 ) -> Callable[[int], float]:
@@ -40,9 +42,9 @@ def psla_lr_schedule(
     def schedule(step: int) -> float:
         step = int(step)
         epoch = step // steps_per_epoch + 1  # 1-indexed, like traintest.py:67
-        # milestones m in {start, start+5, ...} with m <= epoch - 1
+        # milestones m in {start, start + step, ...} with m <= epoch - 1
         past = (epoch - 1) - lrscheduler_start
-        n_decays = 0 if past < 0 else past // milestone_stride + 1
+        n_decays = 0 if past < 0 else past // lrscheduler_step + 1
         lr = base_lr * lrscheduler_decay ** n_decays
         if warmup and step <= warmup_steps:
             # the staircase includes lr = 0 for steps 0-49: the reference's

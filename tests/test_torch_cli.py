@@ -157,7 +157,9 @@ def test_parser_has_the_jax_flags_and_device():
     args = cli.build_parser().parse_args(["--preset", "audioset_full"])
     assert args.device == "cuda"
     jargs = jax_cli.build_parser().parse_args(["--preset", "audioset_full"])
-    assert vars(cli.config_from_args(args)) == vars(jax_cli.config_from_args(jargs))
+    ours = vars(cli.config_from_args(args))
+    assert ours.pop("lrscheduler_step") == 5  # PSLA's, which the JAX package hard-codes
+    assert ours == vars(jax_cli.config_from_args(jargs))
 
 
 def test_console_script_is_declared():

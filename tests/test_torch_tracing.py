@@ -1,9 +1,10 @@
 """The port's spans (``psla_tpu_torch/tracing.py``) on the CPU: none without
-a profiler, the train step's phases nested in order under one, the input
-queue's wait once a batch, and every span the package opens named in
-``SPANS``.
+a profiler, the train step's phases nested in order under one, AST's spans
+inside its forward, the input queue's wait once a batch, and every span
+the package opens named in ``SPANS``.
 
-Size: B0, one head, T=64, 4 classes, batch 4, mixup and SpecAugment on.
+Size: B0, one head, T=64, 4 classes, batch 4, mixup and SpecAugment on;
+AST at width 32, 2 blocks, 2 heads, 32 mel bins.
 """
 
 import ast
@@ -18,7 +19,7 @@ from torch.profiler import ProfilerActivity, profile
 from psla_tpu_torch import tracing
 from psla_tpu_torch.data.device_prefetch import BATCH_FIELDS, prefetch_to_device
 from psla_tpu_torch.frontend.pipeline import PreprocessConfig
-from psla_tpu_torch.models import create_model
+from psla_tpu_torch.models import ASTModel, create_model
 from psla_tpu_torch.train.state import create_train_state
 from psla_tpu_torch.train.step import build_train_step, draw_train, step_generator
 
@@ -94,6 +95,20 @@ def test_train_step_phases_nest_in_order(tmp_path):
     found = assert_step_phases(path)
     assert [e["name"] for e in found] == ["psla.train.draws", "psla.train.step", *PHASES]
     assert state.step == 1 and torch.isfinite(out["loss"])
+
+
+def test_ast_forward_opens_its_spans_in_order(tmp_path):
+    """One forward of a two-block AST: embed, then attention and mlp a
+    block, then head: 2 x depth + 2 spans."""
+    depth = 2
+    model = ASTModel(label_dim=4, input_fdim=32, input_tdim=64, embed_dim=32, depth=depth,
+                     num_heads=2)
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU]) as prof:
+        model(torch.randn(2, 64, 32))
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    assert [e["name"] for e in spans(path)] == [
+        "psla.ast.embed", *["psla.ast.attention", "psla.ast.mlp"] * depth, "psla.ast.head"]
 
 
 @pytest.mark.parametrize("taken", [1, 3])

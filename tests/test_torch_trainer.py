@@ -185,9 +185,9 @@ def test_artifacts_written(twins):
     ckpt = torch.load(os.path.join(exp_dir, "models", "epoch_3", CHECKPOINT_FILE),
                       weights_only=True)
     assert ckpt["step"] == 6 and ckpt["optimizer"]["state"]
-    # the config.json keys are the JAX package's
+    # the config.json keys are the JAX package's and AST's milestone step
     assert sorted(ExperimentConfig.load(os.path.join(exp_dir, "config.json")).__dict__) == \
-        sorted(JaxExperimentConfig().__dict__)
+        sorted([*JaxExperimentConfig().__dict__, "lrscheduler_step"])
 
 
 def test_checkpoint_reads_back_through_the_jax_converter(twins):
